@@ -34,3 +34,10 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "slow: long-running test, left out of the tier-1 run")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where torch sees none")
