@@ -7,15 +7,20 @@ non-zero:
   1. device  - the card's name and power limit (nvidia-smi); no CUDA, no run
   2. build   - nvcc builds the kernels from risc0_tpu_torch/csrc
   3. kernels - every CUDA kernel against its plain torch version on the same
-               CUDA inputs at main-path shapes, bit for bit (torch.equal),
-               with both times
+               CUDA inputs at every shape the prove gives it, bit for bit
+               (torch.equal), with the kernel's time (CUDA events, warm,
+               mean of TIMED_REPS), the plain version's, and the bound:
+               the larger of the bytes over 3.35 TB/s and the 32-bit
+               multiplies (3 per Montgomery product) over 132 SMs x 64 a
+               clock x 1.98 GHz
   4. check   - the fib seal at po2 6 proved on the card must equal the JAX
                package's seal (tests/data/fib_seal_po2_6_seed_0.npy)
   5. prove   - the main path: the loop guest executed at segment po2 20,
                proved on the card, verified by the port's verifier, a
                corrupted seal rejected; prove time, cycles/s, the stage
-               table, peak device memory and each kernel's launch count
-               (every count must be > 0)
+               table (device times: every top-level scope synchronises
+               the card), peak device memory and each kernel's launch
+               count (every count must be > 0)
 
 The last two lines are a JSON object {"kernels": [...]} and
 {"ok": true, "device": {...}}.  Imports nothing of jax.
@@ -32,13 +37,27 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PO2 = 20
-RAND_Z = (1, 2, 3, 4)
-TIMED_REPS = 3
+TIMED_REPS = 5
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and 32-bit integer
+# multiplies/s (132 SMs x 64 IMAD lanes x 1.98 GHz boost clock)
+HBM_BYTES_S = 3.35e12
+MUL32_S = 132 * 64 * 1.98e9
+MUL32_PER_PRODUCT = 3  # Montgomery product: a*b (lo, hi), M*low, red*P
+P2_PRODUCTS = 8 * 24 * 4 + 21 * (4 + 24)  # one Poseidon2 permutation: 1356
 
 
-def _count_for_po2(po2: int) -> int:
-    # loop guest: ~2.02 cycles/iter + ~13k fixed; ~70% fill (bench.py:44-46)
-    return max(1, int((0.70 * (1 << po2) - 13000) / 2.02))
+def _bound(bytes_moved: float, products: float):
+    """(bound_ms, bound_by): the least time for these bytes and products."""
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = products * MUL32_PER_PRODUCT / MUL32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ntt_bound(batch: int, n_bits: int, stages: int, scale: bool):
+    n = 1 << n_bits
+    products = batch * (n // 2) * stages + (batch * n if scale else 0)
+    return _bound(2 * 4 * batch * n, products)
 
 
 def _sync_ms(fn, reps: int = 1):
@@ -65,51 +84,72 @@ def _max_abs_err(a, b) -> int:
 
 
 def phase_kernels(dev, kntt, kp2, ntt_mod):
-    """Kernel vs plain at main-path shapes; returns {kernel: record}."""
+    """Kernel vs plain at the prove's shapes; returns {kernel: record of its
+    first (main-path) shape}.  A record holds the largest error over all
+    of the kernel's shapes."""
     rng = np.random.default_rng(20)
     rec = {}
 
-    def compare(name, shape_s, kernel, plain):
+    def compare(name, shape_s, kernel, plain, bound):
         kernel()  # warm-up: first launch, tables, allocator
         ms, got = _sync_ms(kernel, TIMED_REPS)
         plain_ms, want = _sync_ms(plain)
         err = _max_abs_err(got, want)
         equal = torch.equal(got, want)
+        bound_ms, bound_by = bound
         print(f"kernel {name} {shape_s}: equal={equal} max_abs_err={err} "
-              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}", flush=True)
+              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+              f"bound_ms={bound_ms:.3f} ({bound_by}) "
+              f"share={bound_ms / ms:.1%}", flush=True)
         if not equal:
             raise AssertionError(f"{name} {shape_s} differs from its plain "
                                  f"version (max abs err {err})")
         r = rec.setdefault(name, {"max_abs_err": 0, "ms": ms,
-                                  "plain_ms": plain_ms, "shapes": []})
+                                  "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                  "bound_by": bound_by, "shape": shape_s})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["shapes"].append(shape_s)
         del got, want
         torch.cuda.empty_cache()
 
     n22, n20 = 1 << 22, 1 << 20
     for cols in (211, 16):
         m = _words(rng, (cols, n22), dev)
+        perms = n22 * max(1, -(-cols // 16))
         compare("hash_rows", f"({cols}, 2^22)", lambda: kp2.hash_rows(m),
-                lambda: kp2.hash_rows_plain(m))
+                lambda: kp2.hash_rows_plain(m),
+                _bound(4 * (cols + 8) * n22, perms * P2_PRODUCTS))
         del m
     layer = _words(rng, (2 * (n22 // 2), 8), dev)
     left, right = layer[0::2], layer[1::2]
     compare("hash_pairs", "(2^21, 8)", lambda: kp2.hash_pairs(left, right),
-            lambda: kp2.hash_pairs_plain(left, right))
+            lambda: kp2.hash_pairs_plain(left, right),
+            _bound(4 * 3 * 8 * (n22 // 2), (n22 // 2) * P2_PRODUCTS))
     del layer, left, right
-    c = _words(rng, (211, n20), dev)
-    x = ntt_mod.expand(c, 2)
-    del c
-    compare("evaluate_ntt", "expand((211, 2^20), 2)",
-            lambda: kntt.evaluate_ntt(x, 2),
-            lambda: kntt.evaluate_ntt_plain(x, 2))
-    del x
-    for rows, n in ((211, n20), (4, n22)):
-        x = _words(rng, (rows, n), dev)
-        compare("interpolate_ntt", f"({rows}, 2^{n.bit_length() - 1})",
+
+    # evaluate: the commit LDEs (data chunks of 32, accum 103, one data
+    # group at once), 2^23 and 2^24, and an expand at or above k1
+    k1_22 = kntt.split(22)[0]
+    cases = [(211, 20, 2), (32, 20, 2), (103, 20, 2), (2, 21, 2), (2, 22, 2),
+             (2, 22 - k1_22 - 1, k1_22 + 1)]
+    for rows, c_bits, eb in cases:
+        c = _words(rng, (rows, 1 << c_bits), dev)
+        x = ntt_mod.expand(c, eb)
+        del c
+        n_bits = c_bits + eb
+        shape_s = (f"expand(({rows}, 2^{c_bits}), {eb})" if eb == 2 else
+                   f"({rows}, 2^{n_bits}) expand_bits {eb}")
+        compare("evaluate_ntt", shape_s, lambda: kntt.evaluate_ntt(x, eb),
+                lambda: kntt.evaluate_ntt_plain(x, eb),
+                _ntt_bound(rows, n_bits, n_bits - eb, False))
+        del x
+    # interpolate: the commit iNTTs, the check poly, 2^23 and 2^24
+    for rows, n_bits in ((211, 20), (32, 20), (103, 20), (4, 22), (2, 23),
+                         (2, 24)):
+        x = _words(rng, (rows, 1 << n_bits), dev)
+        compare("interpolate_ntt", f"({rows}, 2^{n_bits})",
                 lambda: kntt.interpolate_ntt(x),
-                lambda: kntt.interpolate_ntt_plain(x))
+                lambda: kntt.interpolate_ntt_plain(x),
+                _ntt_bound(rows, n_bits, n_bits, True))
         del x
     return rec
 
@@ -131,18 +171,13 @@ def phase_check(dev):
 
 
 def phase_prove(dev, counters):
-    from risc0_tpu import perf
-    from risc0_tpu.zkvm.exec import ExecutorEnv, ExecutorImpl
+    from risc0_tpu_torch import loop_guest, perf
     from risc0_tpu_torch.circuit.rv32im.prove import prove_segment
     from risc0_tpu_torch.circuit.rv32im.verify import verify_rv32im_seal
     from risc0_tpu_torch.verify.verifier import VerificationError
 
-    with open(os.path.join(ROOT, "guests", "loop.bin"), "rb") as f:
-        elf = f.read()
     t0 = time.perf_counter()
-    env = ExecutorEnv(segment_po2=PO2).write_slice(
-        _count_for_po2(PO2).to_bytes(4, "little"))
-    seg = ExecutorImpl(env, elf).run().segments[0]
+    seg = loop_guest.segment(PO2)
     print(f"prove: executed loop guest, segment po2 {seg.po2} "
           f"({time.perf_counter() - t0:.2f} s)", flush=True)
     if seg.po2 != PO2:
@@ -154,7 +189,7 @@ def phase_prove(dev, counters):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    seal = prove_segment(seg, rand_z=RAND_Z, device=dev)
+    seal = prove_segment(seg, rand_z=loop_guest.RAND_Z, device=dev)
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
@@ -181,7 +216,8 @@ def phase_prove(dev, counters):
     print(f"prove: verified in {verify_s:.2f} s; corrupted seal rejected "
           f"({rejected})", flush=True)
     print(f"prove: peak device memory {peak / 2**30:.2f} GiB", flush=True)
-    print("prove: stage table (s, calls)", flush=True)
+    print("prove: stage table (s, calls; each top-level scope ends in a "
+          "device sync)", flush=True)
     for path, (calls, secs) in sorted(stages.items(), key=lambda kv: -kv[1][1]):
         if "." not in path or path.startswith("commit_group."):
             print(f"  {secs:9.3f}  x{calls:<3d} {path}", flush=True)
@@ -232,7 +268,9 @@ def main() -> int:
         "source": f"risc0_tpu_torch/csrc/{src}", "replaces": replaces,
         "launches": launches[name], "max_abs_err": rec[name]["max_abs_err"],
         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
-        "shape": rec[name]["shapes"][0],
+        "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],
+        "library_ms": None,  # no PyTorch call computes these functions
+        "shape": rec[name]["shape"],
     } for name, (src, replaces) in meta.items()]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

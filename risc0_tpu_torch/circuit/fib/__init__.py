@@ -20,14 +20,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from risc0_tpu.taps import (REGISTER_GROUP_ACCUM, REGISTER_GROUP_CODE,
-                            REGISTER_GROUP_DATA, TapSet)
-
 from ... import field as F
+from ...convert import card
 from ...core import poly
 from ...hal import torch_hal as hal
 from ...hash.suite import POSEIDON2
 from ...prove.prover import PolyGroup, Prover
+from ...taps import (REGISTER_GROUP_ACCUM, REGISTER_GROUP_CODE,
+                     REGISTER_GROUP_DATA, TapSet)
 from ...verify import verifier as V
 
 SEAL_VERSION = 1
@@ -184,8 +184,10 @@ def _info_digest(suite, info: bytes):
     return suite.hash_elem_slice(F.encode_np(words.astype(np.uint32)))
 
 
-def prove(po2: int, f0: int = 1, f1: int = 1, seed: int = 0, device="cpu"):
-    """Produce a fib seal on `device`."""
+def prove(po2: int, f0: int = 1, f1: int = 1, seed: int = 0, device="cuda"):
+    """Produce a fib seal on `device` (the card unless the caller names
+    another)."""
+    device = card(device)
     suite = POSEIDON2
     code, data, out, active = witgen(po2, f0, f1, seed)
 
@@ -210,14 +212,17 @@ def prove(po2: int, f0: int = 1, f1: int = 1, seed: int = 0, device="cpu"):
     return prover.finalize([mix, out], FibCircuitHal())
 
 
-def code_root(po2: int, device="cpu") -> np.ndarray:
+def code_root(po2: int, device="cuda") -> np.ndarray:
     """Deterministic code-group Merkle root for check_code."""
+    device = card(device)
     code, _, _, _ = witgen(po2)
     coeffs = hal.make_coeffs(hal.as_words(code, device))
     return PolyGroup.from_coeffs(coeffs).merkle.root
 
 
-def verify(seal: np.ndarray, device="cpu"):
+def verify(seal: np.ndarray, device="cuda"):
+    """Verify a fib seal; the code root is recomputed on `device`."""
+    device = card(device)
     seal = np.asarray(seal, np.uint32)
     if len(seal) == 0 or seal[0] != SEAL_VERSION:
         raise V.VerificationError("bad seal version")

@@ -2,8 +2,8 @@
 (counterpart of ``risc0_tpu/circuit/rv32im/circuit.py``).
 
 The tap set and the constraint polynomial (a flat SSA IR) are the
-reference's extracted data under ``risc0_tpu/circuit/rv32im/data/``; this
-module loads the same files.  The prover-side evaluation over the 4x domain
+reference's extracted data under ``risc0_tpu/circuit/rv32im/data/``
+(``assets.RV32IM_DATA``); this module loads the same files.  The prover-side evaluation over the 4x domain
 is ``circuit/ir_range.make_eval_check``.
 """
 
@@ -14,18 +14,14 @@ from functools import lru_cache
 
 import numpy as np
 
-import risc0_tpu
-from risc0_tpu.taps import Reg, TapSet
-
 from ... import field as F
+from ...assets import RV32IM_DATA as _DATA
+from ...taps import Reg, TapSet
 
 # reference circuit/rv32im/src/zirgen/info.rs:23
 CIRCUIT_INFO = b"RV32IM:v2rev2___"
 OUTPUT_SIZE = 90   # globals (defs.rs.inc REGCOUNT_GLOBAL)
 MIX_SIZE = 36      # accum mix elems (REGCOUNT_MIX)
-
-_DATA = os.path.join(os.path.dirname(risc0_tpu.__file__), "circuit",
-                     "rv32im", "data")
 
 # op codes (scripts/extract_rv32im.py pack())
 FCONST, FTAP, FGLOBAL, FSCR_RD, FADD, FSUB, FMUL, ECONST, EMADD, FSCR_WR, \

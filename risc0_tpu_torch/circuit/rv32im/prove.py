@@ -15,13 +15,13 @@ from functools import lru_cache
 
 import numpy as np
 
-from risc0_tpu import perf
-from risc0_tpu.taps import (REGISTER_GROUP_ACCUM, REGISTER_GROUP_CODE,
-                            REGISTER_GROUP_DATA)
-
 from ... import field as F
+from ... import perf
+from ...convert import card
 from ...hash.suite import POSEIDON2
 from ...prove.prover import Prover
+from ...taps import (REGISTER_GROUP_ACCUM, REGISTER_GROUP_CODE,
+                     REGISTER_GROUP_DATA)
 from ...verify import verifier as V
 from .. import ir_range
 from .circuit import load_circuit
@@ -63,20 +63,22 @@ def _range_plan(circuit):
     return ir_range.build_range_plan(circuit)
 
 
-def segment_preflight(seg, rand_z=None, rng=None):
+def segment_preflight(seg, rand_z=None, rng=None, device=None):
     """Host half of segment proving: preflight re-execution + exec witness
     generation (reference ProverServer::segment_preflight)."""
     rng = rng or np.random.default_rng()
     if rand_z is None:
         rand_z = tuple(int(x) for x in rng.integers(0, F.P, 4))
-    with perf.scope("witgen_exec"):
+    with perf.scope("witgen_exec", sync=device):
         return witgen_exec(seg, rand_z=rand_z)
 
 
-def prove_segment(seg, rand_z=None, rng=None, device="cpu",
+def prove_segment(seg, rand_z=None, rng=None, device="cuda",
                   eval_chunk: int = EVAL_CHUNK):
-    """Prove one executed segment on `device`; returns the seal (u32)."""
-    res = segment_preflight(seg, rand_z=rand_z, rng=rng)
+    """Prove one executed segment on `device` (the card unless the caller
+    names another); returns the seal (u32)."""
+    device = card(device)
+    res = segment_preflight(seg, rand_z=rand_z, rng=rng, device=device)
     return prove_segment_core(res, device=device, eval_chunk=eval_chunk)
 
 
@@ -85,10 +87,11 @@ def _info_digest(suite, info: bytes):
     return suite.hash_elem_slice(F.encode_np(words.astype(np.uint32)))
 
 
-def prove_segment_core(res, device="cpu", eval_chunk: int = EVAL_CHUNK):
+def prove_segment_core(res, device="cuda", eval_chunk: int = EVAL_CHUNK):
     """Device half of segment proving over a preflight/witgen result, with
     the accum witness generated on the host (reference
     ProverServer::prove_segment_core with RISC0_TPU_HOST_ACCUM=1)."""
+    device = card(device)
     suite = POSEIDON2
     circuit = load_circuit()
     cycles = res["rows"]
@@ -118,7 +121,7 @@ def prove_segment_core(res, device="cpu", eval_chunk: int = EVAL_CHUNK):
 
     mix_m = np.array([iop.random_elem() for _ in range(REGCOUNT_MIX)],
                      np.uint32)
-    with perf.scope("witgen_accum"):
+    with perf.scope("witgen_accum", sync=device):
         accum = witgen_accum(res, F.decode_np(mix_m))
     prover.commit_group(REGISTER_GROUP_ACCUM, accum, encode=True)
 

@@ -21,14 +21,11 @@ import struct
 
 import numpy as np
 
-import risc0_tpu
-from risc0_tpu.zkvm import native
-from risc0_tpu.zkvm.exec import preflight_segment
-
+from ...assets import RV32IM_DATA as _DATA_DIR
 from ...field import P
+from ...zkvm import native
+from ...zkvm.exec import preflight_segment
 
-_DATA_DIR = os.path.join(os.path.dirname(risc0_tpu.__file__), "circuit", "rv32im",
-                         "data")
 INVALID = np.uint32(0xFFFFFFFF)
 
 REGCOUNT_DATA = 211

@@ -16,6 +16,17 @@ def to_torch(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a.view(np.int32)).to(device, copy=True)
 
 
+def card(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another.  A CUDA device that torch cannot see raises: nothing falls
+    back to the CPU unless the caller asks for it (device="cpu")."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev}: torch sees no CUDA device "
+                           "(pass device='cpu' to run on the CPU)")
+    return dev
+
+
 def to_numpy(t) -> np.ndarray:
     """int32 tensor (any device) -> numpy u32."""
     if isinstance(t, np.ndarray):

@@ -13,25 +13,29 @@ namespace bb {
 
 constexpr uint32_t P = 0x78000001u;  // 15 * 2^27 + 1
 constexpr uint32_t M = 0x88000001u;  // P^-1 mod 2^32
+constexpr uint32_t NEG_M = 0u - M;   // -P^-1 mod 2^32
 
+// Each op ends in one unsigned min instead of a compare and a select:
+// for x < 2P, min(x, x - P) is x mod P, since x - P wraps above x when
+// x < P.
 __device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
-  uint32_t x = a + b;  // < 2^32 since a, b < P < 2^31
-  return x >= P ? x - P : x;
+  const uint32_t x = a + b;  // < 2^32 since a, b < P < 2^31
+  return min(x, x - P);
 }
 
 __device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
-  uint32_t x = a + P - b;
-  return x >= P ? x - P : x;
+  const uint32_t x = a - b;  // wraps when a < b; then x + P = a - b + P
+  return min(x, x + P);
 }
 
-// Montgomery product a*b*2^-32 mod P (reference baby_bear.rs:337-350).
+// Montgomery product a*b*2^-32 mod P (reference baby_bear.rs:337-350):
+// red = -P^-1 * low(a*b) makes a*b + red*P divisible by 2^32.
 __device__ __forceinline__ uint32_t mul(uint32_t a, uint32_t b) {
   uint64_t o = (uint64_t)a * b;
-  uint32_t low = 0u - (uint32_t)o;
-  uint32_t red = M * low;
+  const uint32_t red = NEG_M * (uint32_t)o;
   o += (uint64_t)red * P;  // < 2^62 + 2^63: no wrap
-  uint32_t ret = (uint32_t)(o >> 32);
-  return ret >= P ? ret - P : ret;
+  const uint32_t ret = (uint32_t)(o >> 32);  // < 2P
+  return min(ret, ret - P);
 }
 
 }  // namespace bb

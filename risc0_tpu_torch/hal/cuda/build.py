@@ -29,8 +29,8 @@ _SIGNATURES = {
     "p2_set_constants": (_V, _V),
     "p2_hash_rows": (_V, _V, _U32, _U64, _V),
     "p2_hash_pairs": (_V, _V, _V, _U64, _U64, _U64, _V),
-    "ntt_evaluate": (_V, _V, _V, _U32, _U32, _U32, _V),
-    "ntt_interpolate": (_V, _V, _V, _U32, _U32, _U32, _V),
+    "ntt_evaluate": (_V, _V, _V, _V, _V, *[_U32] * 6, _V),
+    "ntt_interpolate": (_V, _V, _V, _V, _V, *[_U32] * 6, _V),
 }
 
 _lib = None
@@ -57,24 +57,50 @@ def _nvcc() -> str:
                        "toolkit (PATH or /usr/local/cuda/bin)")
 
 
+def _run(procs, what):
+    """Wait for every (name, Popen); raise with the first failure's output,
+    else return the combined output."""
+    outs, failed = [], None
+    for name, proc in procs:
+        out, _ = proc.communicate()
+        outs.append(f"== {name}\n{out}")
+        if proc.returncode != 0 and failed is None:
+            failed = f"{what} {name} failed ({proc.returncode}):\n{out}"
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile the library if this source hash has not been built; returns
-    its path.  The compiler's -Xptxas -v report is kept beside it."""
+    its path.  One nvcc per source, all started together, then one link.
+    The compiler's -Xptxas -v report is kept beside the library."""
     so = BUILD_DIR / f"libr0torch_{_source_hash()}.so"
     log = so.with_suffix(".log")
     if so.exists():
         build_info.update(path=str(so), seconds=0.0, cached=True)
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES if s.endswith(".cu")]]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    log.write_text(res.stdout + res.stderr)
+    objs, procs = [], []
+    for src in (s for s in SOURCES if s.endswith(".cu")):
+        obj = BUILD_DIR / f"{tag}.{Path(src).stem}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-c", "-o", str(obj), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    report = _run(procs, "nvcc")
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    _run([("link", subprocess.Popen(
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))],
+        "nvcc")
+    for obj in objs:
+        obj.unlink()
+    log.write_text(report)
     os.replace(tmp, so)
     build_info.update(path=str(so), seconds=time.perf_counter() - t0,
                       cached=False)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import field as F
-from ..convert import to_torch
+from ..convert import card, to_torch
 from ..core import ntt
 from .cuda import ntt as kntt
 from .cuda import poseidon2 as kp2
@@ -218,11 +218,12 @@ def merkle_layers(matrix):
     return layers
 
 
-def commit_pipeline(witness, encode: bool = False, device="cpu"):
+def commit_pipeline(witness, encode: bool = False, device="cuda"):
     """iNTT -> zk-shift -> 4x LDE -> Merkle for one (cols, rows) group.
     `witness` is numpy u32 or an int32 tensor; encode=True takes a
     standard-form witness and Montgomery-encodes it on the device.
     Returns (coeffs_nat, evaluated, layers)."""
+    device = card(device)
     cols, rows = witness.shape
     if cols * rows * INV_RATE * 4 > COMMIT_CHUNK_BYTES:
         return commit_pipeline_chunked(witness, encode=encode, device=device)
@@ -234,10 +235,11 @@ def commit_pipeline(witness, encode: bool = False, device="cpu"):
     return ntt.bit_reverse(coeffs), evaluated, merkle_layers(evaluated)
 
 
-def commit_pipeline_chunked(witness, encode: bool = False, device="cpu",
+def commit_pipeline_chunked(witness, encode: bool = False, device="cuda",
                             chunk_cols: int = COMMIT_CHUNK_COLS):
     """commit_pipeline over column chunks: per-column NTTs are exact under
     chunking, so the result equals the fused path."""
+    device = card(device)
     cols, rows = witness.shape
     coeffs_nat = torch.empty((cols, rows), dtype=torch.int32, device=device)
     evaluated = torch.empty((cols, rows * INV_RATE), dtype=torch.int32,

@@ -17,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from risc0_tpu.hash.poseidon2_consts import (
+from .. import field as F
+from .poseidon2_consts import (
     CELLS,
     CELLS_OUT,
     CELLS_RATE,
@@ -26,8 +27,6 @@ from risc0_tpu.hash.poseidon2_consts import (
     ROUNDS_HALF_FULL,
     ROUNDS_PARTIAL,
 )
-
-from .. import field as F
 
 # Constants in Montgomery form (host numpy arrays).
 RC_MONT = F.encode_np(np.array(ROUND_CONSTANTS, np.uint32)).reshape(-1, CELLS)

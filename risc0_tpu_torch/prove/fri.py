@@ -9,8 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from risc0_tpu import perf
-
+from .. import perf
 from ..convert import to_numpy
 from ..core import ntt
 from ..hal import torch_hal as hal

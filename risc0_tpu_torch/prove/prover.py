@@ -11,16 +11,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from risc0_tpu import perf
-from risc0_tpu.prove.write_iop import WriteIOP
-
 from .. import field as F
-from ..convert import to_numpy
+from .. import perf
+from ..convert import card, to_numpy
 from ..core import ntt
 from ..hal import torch_hal as hal
 from . import soundness
 from .fri import fri_prove
 from .merkle import MerkleTreeProver
+from .write_iop import WriteIOP
 
 INV_RATE = 4
 EXT_SIZE = 4
@@ -56,10 +55,10 @@ class PolyGroup:
 
 
 class Prover:
-    def __init__(self, suite, taps, device="cpu"):
+    def __init__(self, suite, taps, device="cuda"):
         self.suite = suite
         self.taps = taps
-        self.device = torch.device(device)
+        self.device = card(device)
         self.iop = WriteIOP(suite)
         self.groups = [None] * taps.num_groups
         self.po2 = None
@@ -81,7 +80,7 @@ class Prover:
                              f"{tuple(witness.shape)}")
         if self.groups[group_id] is not None:
             raise RuntimeError(f"group {group_id} already committed")
-        with perf.scope(f"commit_group.{group_id}"):
+        with perf.scope(f"commit_group.{group_id}", sync=self.device):
             pg = PolyGroup.commit_witness(witness, self.device, encode=encode)
             self.groups[group_id] = pg
             pg.merkle.commit(self.iop)   # the root readback syncs the device
@@ -97,17 +96,16 @@ class Prover:
         poly_mix = iop.random_ext_elem()
         domain = self.cycles * INV_RATE
 
-        with perf.scope("eval_check"):
+        with perf.scope("eval_check", sync=dev):
             check_poly = circuit_hal.eval_check(
                 [pg.evaluated for pg in self.groups], globals_list,
                 poly_mix, self.po2)
             if tuple(check_poly.shape) != (EXT_SIZE, domain):
                 raise ValueError(f"check poly shape {tuple(check_poly.shape)}")
-            to_numpy(check_poly[0:1, 0:1])  # sync: the scope covers the work
 
         # iNTT the 4 planar polys; the bit-reversed coeffs read as 16 polys
         # of length cycles (prover.rs:143-178)
-        with perf.scope("check_commit"):
+        with perf.scope("check_commit", sync=dev):
             check_group = PolyGroup(*hal.check_pipeline(check_poly,
                                                         CHECK_SIZE))
             check_group.merkle.commit(iop)
@@ -117,7 +115,7 @@ class Prover:
         back_one = F.s_encode(F.ROU_REV[self.po2])
 
         # evaluate every tap at z * back_one^back, groups accum/code/data
-        with perf.scope("tap_eval"):
+        with perf.scope("tap_eval", sync=dev):
             with perf.scope("tap_xs"):
                 group_ids, cols, backs = [], [], []
                 for gid in range(taps.num_groups):
@@ -179,7 +177,7 @@ class Prover:
 
         # FRI batching mix
         mix = iop.random_ext_elem()
-        with perf.scope("combos"):
+        with perf.scope("combos", sync=dev):
             combo_count = taps.combos_size
             combos = torch.zeros((combo_count + 1, self.cycles, 4),
                                  dtype=torch.int32, device=dev)
@@ -257,7 +255,7 @@ class Prover:
 
             return write
 
-        with perf.scope("fri_prove"):
+        with perf.scope("fri_prove", sync=dev):
             fri_prove(iop, final_coeffs, inner)
 
         with perf.scope("soundness"):

@@ -13,6 +13,8 @@ from .. import field as F
 from ..core import poly
 from ..core.ntt import _bitrev_perm, _twiddles
 from ..prove.merkle import merkle_params
+from ..taps import (REGISTER_GROUP_ACCUM, REGISTER_GROUP_CODE,
+                    REGISTER_GROUP_DATA)
 
 INV_RATE = 4
 EXT_SIZE = 4
@@ -345,9 +347,6 @@ def verify(circuit, suite, seal, check_code):
     poly_ext(poly_mix, eval_u, out, mix) -> ext value.
     check_code(po2, code_root) raises on mismatch.
     """
-    from risc0_tpu.taps import (REGISTER_GROUP_ACCUM, REGISTER_GROUP_CODE,
-                                REGISTER_GROUP_DATA)
-
     if len(seal) == 0:
         raise VerificationError("empty seal")
     v = Verifier(circuit.taps, suite, seal)

@@ -71,12 +71,52 @@ def test_ntt_kernels(dev, n_bits, batch):
     assert torch.equal(kntt.interpolate_ntt(x), kntt.interpolate_ntt_plain(x))
 
 
-@pytest.mark.parametrize("n_bits", [2, 3, 11, 13, 15])
+# n_bits 17-24: every (k1, k2) split of the two-pass kernels, up to the
+# 64 KB strided tile at k2 = 10 (n_bits 24)
+@pytest.mark.parametrize("n_bits", list(range(17, 25)))
+@pytest.mark.parametrize("batch", [1, 2])
+def test_ntt_kernels_large(dev, n_bits, batch):
+    rng = np.random.default_rng(n_bits * 10 + batch)
+    x = _words(rng, (batch, 1 << n_bits), dev)
+    assert torch.equal(kntt.evaluate_ntt(x), kntt.evaluate_ntt_plain(x))
+    assert torch.equal(kntt.interpolate_ntt(x), kntt.interpolate_ntt_plain(x))
+
+
+def test_ntt_kernels_batch_above_one_tile(dev):
+    # 9 rows: above the 8-row batch tile of the Pallas kernels
+    x = _words(np.random.default_rng(9), (9, 1 << 14), dev)
+    assert torch.equal(kntt.evaluate_ntt(x), kntt.evaluate_ntt_plain(x))
+    assert torch.equal(kntt.interpolate_ntt(x), kntt.interpolate_ntt_plain(x))
+
+
+@pytest.mark.parametrize("n_bits", [2, 3, 11, 13, 15, 22])
 def test_ntt_expand_kernel(dev, n_bits):
     rng = np.random.default_rng(n_bits)
     c = _words(rng, (5, 1 << (n_bits - 2)), dev)
     x = ntt_mod.expand(c, 2).contiguous()
     assert torch.equal(kntt.evaluate_ntt(x, 2), kntt.evaluate_ntt_plain(x, 2))
+
+
+# expand_bits at or above k1: the contiguous pass is skipped and the
+# strided pass starts above its first stage (or is skipped too)
+@pytest.mark.parametrize("n_bits,expand_bits", [(14, 12), (16, 13), (20, 15),
+                                                (12, 12), (14, 14)])
+def test_ntt_expand_at_or_above_k1(dev, n_bits, expand_bits):
+    assert expand_bits >= kntt.split(n_bits)[0]
+    rng = np.random.default_rng(n_bits + expand_bits)
+    c = _words(rng, (2, 1 << (n_bits - expand_bits)), dev)
+    x = ntt_mod.expand(c, expand_bits).contiguous()
+    assert torch.equal(kntt.evaluate_ntt(x, expand_bits),
+                       kntt.evaluate_ntt_plain(x, expand_bits))
+
+
+def test_ntt_misaligned_view(dev):
+    # a row view that starts 4 bytes into its storage is copied first
+    base = _words(np.random.default_rng(3), (1, 1 + (2 << 13)), dev)
+    x = base[0, 1:].reshape(2, 1 << 13)
+    assert x.data_ptr() % 16
+    assert torch.equal(kntt.evaluate_ntt(x), kntt.evaluate_ntt_plain(x))
+    assert torch.equal(kntt.interpolate_ntt(x), kntt.interpolate_ntt_plain(x))
 
 
 def test_ntt_roundtrip_kernel(dev):

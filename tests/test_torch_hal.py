@@ -52,7 +52,7 @@ def _np(xs):
 def case_commit(impl, encode=False):
     w = _rand(1, (3, 1 << 6))
     if impl == "port":
-        c, e, layers = hal.commit_pipeline(w, encode=encode)
+        c, e, layers = hal.commit_pipeline(w, encode=encode, device="cpu")
     else:
         jnp, rhal = _jnp_hal()
         c, e, layers = rhal.commit_pipeline(jnp.asarray(w), "poseidon2",
@@ -67,7 +67,7 @@ def case_commit_encode(impl):
 def case_commit_chunked(impl):
     w = _rand(2, (5, 1 << 6))
     if impl == "port":
-        c, e, layers = hal.commit_pipeline_chunked(w, encode=True,
+        c, e, layers = hal.commit_pipeline_chunked(w, encode=True, device="cpu",
                                                    chunk_cols=2)
     else:
         _, rhal = _jnp_hal()
@@ -218,8 +218,9 @@ def test_op_matches_live_jnp_hal(name):
 
 def test_chunked_commit_equals_fused():
     w = _rand(2, (5, 1 << 6))
-    fused = hal.commit_pipeline(w, encode=True)
-    chunked = hal.commit_pipeline_chunked(w, encode=True, chunk_cols=2)
+    fused = hal.commit_pipeline(w, encode=True, device="cpu")
+    chunked = hal.commit_pipeline_chunked(w, encode=True, device="cpu",
+                                           chunk_cols=2)
     assert all(torch.equal(a, b) for a, b in zip(fused[:2], chunked[:2]))
     assert all(torch.equal(a, b) for a, b in zip(fused[2], chunked[2]))
 
@@ -234,14 +235,14 @@ def test_large_groups_take_the_chunked_path(monkeypatch):
 
     monkeypatch.setattr(hal, "commit_pipeline_chunked", spy)
     monkeypatch.setattr(hal, "COMMIT_CHUNK_BYTES", 1 << 10)
-    hal.commit_pipeline(_rand(3, (2, 1 << 6)))  # 2 KiB evaluated
+    hal.commit_pipeline(_rand(3, (2, 1 << 6)), device="cpu")  # 2 KiB
     assert calls == [1]
 
 
 def test_commit_leaves_caller_witness_untouched():
     w = _rand(22, (2, 1 << 6))
     before = w.copy()
-    hal.commit_pipeline(w, encode=True)
+    hal.commit_pipeline(w, encode=True, device="cpu")
     assert np.array_equal(w, before)
 
 

@@ -9,7 +9,9 @@
   * rv32im witgen: the port's wrapper gives the reference's columns;
   * rv32im seal (slow): a real loop-guest segment proved by the port is
     accepted by both verifiers and a corrupted one rejected by both;
-  * the port imports and proves with jax made unimportable.
+  * the port imports and proves with jax and the JAX package made
+    unimportable;
+  * the port's copy of the executor gives the reference's segment.
 
 Field arithmetic is exact, so every comparison is bit for bit.
 """
@@ -34,7 +36,7 @@ FIB_SEAL = os.path.join(REPO, "tests", "data", "fib_seal_po2_6_seed_0.npy")
 
 @pytest.fixture(scope="module")
 def fib_seal():
-    return fib.prove(po2=6, seed=0)
+    return fib.prove(po2=6, seed=0, device="cpu")
 
 
 def test_fib_seal_is_the_jax_seal(fib_seal):
@@ -42,13 +44,13 @@ def test_fib_seal_is_the_jax_seal(fib_seal):
 
 
 def test_fib_seal_verifies_and_corruption_is_rejected(fib_seal):
-    out = fib.verify(fib_seal)
+    out = fib.verify(fib_seal, device="cpu")
     assert np.array_equal(out, fib.witgen(6)[2])
     for idx in (5, len(fib_seal) // 2):  # the po2 word, a Merkle opening
         bad = np.array(fib_seal)
         bad[idx] ^= 1
         with pytest.raises(VerificationError):
-            fib.verify(bad)
+            fib.verify(bad, device="cpu")
 
 
 @pytest.mark.slow
@@ -141,6 +143,32 @@ def _loop_segment(count=100):
     return ExecutorImpl(env, elf).run().segments[0]
 
 
+def test_port_executor_matches_reference():
+    from risc0_tpu.circuit.keccak.preflight import keccak_f as ref_keccak
+    from risc0_tpu.zkvm.exec import preflight_segment as ref_preflight
+    from risc0_tpu_torch.circuit.keccak.preflight import keccak_f
+    from risc0_tpu_torch.zkvm.exec import (ExecutorEnv, ExecutorImpl,
+                                           preflight_segment)
+
+    with open(os.path.join(REPO, "guests", "loop.bin"), "rb") as f:
+        elf = f.read()
+    env = ExecutorEnv(segment_po2=16).write_slice((100).to_bytes(4, "little"))
+    got = ExecutorImpl(env, elf).run().segments[0]
+    ref = _loop_segment()
+    assert (got.po2, got.user_cycles, got.paging_cycles) == \
+        (ref.po2, ref.user_cycles, ref.paging_cycles)
+    for name in ("pre_digest", "post_digest", "input_digest"):
+        assert np.array_equal(getattr(got, name), getattr(ref, name))
+    assert got.pages == ref.pages
+    pf, rpf = preflight_segment(got), ref_preflight(ref)
+    assert pf.keys() == rpf.keys()
+    for k in pf:
+        assert np.array_equal(pf[k], rpf[k]), k
+    state = [int(x) for x in np.random.default_rng(9).integers(
+        0, 1 << 63, 25, dtype=np.uint64)]
+    assert keccak_f(list(state)) == ref_keccak(list(state))
+
+
 def test_witgen_matches_reference():
     from risc0_tpu.circuit.rv32im import witgen as rw
     from risc0_tpu_torch.circuit.rv32im import witgen as tw
@@ -193,14 +221,16 @@ def test_rv32im_seal_accepted_by_both_verifiers():
 _NO_JAX = """
 import sys
 sys.modules["jax"] = None
+sys.modules["risc0_tpu"] = None
 import numpy as np
 import risc0_tpu_torch
 from risc0_tpu_torch.circuit import fib
 from risc0_tpu_torch.circuit.rv32im import prove, verify
-seal = fib.prove(po2=6, seed=0)
-fib.verify(seal)
+seal = fib.prove(po2=6, seed=0, device="cpu")
+fib.verify(seal, device="cpu")
 assert np.array_equal(seal, np.load(sys.argv[1]))
-assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items() if v}
+loaded = {m.split(".")[0] for m, v in sys.modules.items() if v}
+assert not loaded & {"jax", "risc0_tpu"}, loaded & {"jax", "risc0_tpu"}
 print("ok")
 """
 
