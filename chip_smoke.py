@@ -12,7 +12,9 @@ non-zero:
                mean of TIMED_REPS), the plain version's, and the bound:
                the larger of the bytes over 3.35 TB/s and the 32-bit
                multiplies (3 per Montgomery product) over 132 SMs x 64 a
-               clock x 1.98 GHz
+               clock x 1.98 GHz.  The pair kernel runs as the Merkle fold
+               of each tree of the prove and as one layer; both Poseidon2
+               kernels also meet words at the edges of their lazy bounds
   4. check   - the fib seal at po2 6 proved on the card must equal the JAX
                package's seal (tests/data/fib_seal_po2_6_seed_0.npy)
   5. prove   - the main path: the loop guest executed at segment po2 20,
@@ -41,6 +43,7 @@ TIMED_REPS = 5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and 32-bit integer
 # multiplies/s (132 SMs x 64 IMAD lanes x 1.98 GHz boost clock)
+P = 2013265921  # BabyBear
 HBM_BYTES_S = 3.35e12
 MUL32_S = 132 * 64 * 1.98e9
 MUL32_PER_PRODUCT = 3  # Montgomery product: a*b (lo, hi), M*low, red*P
@@ -90,16 +93,18 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
     rng = np.random.default_rng(20)
     rec = {}
 
-    def compare(name, shape_s, kernel, plain, bound):
+    def compare(name, shape_s, kernel, plain, bound, reps=TIMED_REPS):
         kernel()  # warm-up: first launch, tables, allocator
-        ms, got = _sync_ms(kernel, TIMED_REPS)
+        ms, got = _sync_ms(kernel, reps)
         plain_ms, want = _sync_ms(plain)
+        if isinstance(got, list):  # the fold's layers
+            got, want = torch.cat(got), torch.cat(want)
         err = _max_abs_err(got, want)
         equal = torch.equal(got, want)
         bound_ms, bound_by = bound
         print(f"kernel {name} {shape_s}: equal={equal} max_abs_err={err} "
               f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-              f"bound_ms={bound_ms:.3f} ({bound_by}) "
+              f"bound_ms={bound_ms:.5f} ({bound_by}) "
               f"share={bound_ms / ms:.1%}", flush=True)
         if not equal:
             raise AssertionError(f"{name} {shape_s} differs from its plain "
@@ -111,20 +116,56 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
         del got, want
         torch.cuda.empty_cache()
 
-    n22, n20 = 1 << 22, 1 << 20
-    for cols in (211, 16):
-        m = _words(rng, (cols, n22), dev)
-        perms = n22 * max(1, -(-cols // 16))
-        compare("hash_rows", f"({cols}, 2^22)", lambda: kp2.hash_rows(m),
+    # hash_rows at every shape of the prove: data, accum, check and code
+    # groups, the FRI rounds, the final FRI digest (prove/fri.py)
+    n22 = 1 << 22
+    big = _words(rng, (211, n22), dev)
+    for cols, bits in ((211, 22), (103, 22), (16, 22), (1, 22), (64, 18),
+                       (64, 14), (64, 10), (1024, 0)):
+        m = big[:cols] if bits == 22 else _words(rng, (cols, 1 << bits), dev)
+        perms = (1 << bits) * max(1, -(-cols // 16))
+        compare("hash_rows", f"({cols}, 2^{bits})", lambda: kp2.hash_rows(m),
                 lambda: kp2.hash_rows_plain(m),
-                _bound(4 * (cols + 8) * n22, perms * P2_PRODUCTS))
+                _bound(4 * (cols + 8) * (1 << bits), perms * P2_PRODUCTS),
+                TIMED_REPS if bits >= 18 else 20)
         del m
-    layer = _words(rng, (2 * (n22 // 2), 8), dev)
+    del big
+    # the Merkle fold above the leaves of each tree of the prove: 2^n - 1
+    # compressions, the leaves read once and every layer written once
+    for bits in (22, 18, 14, 10):
+        leaves = _words(rng, (1 << bits, 8), dev)
+        compare("hash_pairs", f"fold 2^{bits} leaves",
+                lambda: kp2.merkle_fold(leaves),
+                lambda: kp2.merkle_fold_plain(leaves),
+                _bound(32 * ((1 << bits) + (1 << bits) - 1),
+                       ((1 << bits) - 1) * P2_PRODUCTS),
+                TIMED_REPS if bits >= 18 else 20)
+        del leaves
+    # one layer of the pair kernel: hash_pairs(left, right)
+    layer = _words(rng, (n22, 8), dev)
     left, right = layer[0::2], layer[1::2]
     compare("hash_pairs", "(2^21, 8)", lambda: kp2.hash_pairs(left, right),
             lambda: kp2.hash_pairs_plain(left, right),
             _bound(4 * 3 * 8 * (n22 // 2), (n22 // 2) * P2_PRODUCTS))
     del layer, left, right
+    # words at the edges of the kernels' lazy bounds: all 0, all P - 1, and
+    # those mixed with 1, P - 2 and the Montgomery one
+    edge = np.array([0, 1, P - 1, P - 2, (1 << 32) % P], np.uint32)
+    for label, fill in (("all 0", 0), ("all P-1", P - 1), ("mixed", None)):
+        words = (np.full((64, 1 << 12), fill, np.uint32) if fill is not None
+                 else rng.choice(edge, (64, 1 << 12)))
+        m = torch.from_numpy(words.view(np.int32)).to(dev)
+        leaves = m.reshape(-1, 8)[: 1 << 12]
+        for name, kernel, plain in (
+                ("hash_rows", kp2.hash_rows(m), kp2.hash_rows_plain(m)),
+                ("hash_pairs", torch.cat(kp2.merkle_fold(leaves)),
+                 torch.cat(kp2.merkle_fold_plain(leaves)))):
+            equal = torch.equal(kernel, plain)
+            print(f"kernel {name} edge words {label}: equal={equal}",
+                  flush=True)
+            if not equal:
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"on edge words ({label})")
 
     # evaluate: the commit LDEs (data chunks of 32, accum 103, one data
     # group at once), 2^23 and 2^24, and an expand at or above k1

@@ -1,25 +1,51 @@
-// Poseidon2 (BabyBear, t = 24) row hashing and pair compression for Hopper.
+// Poseidon2 (BabyBear, t = 24) row hashing and Merkle folding for Hopper.
 //
 // Replaces the Pallas kernels in risc0_tpu/hal/pallas/poseidon2.py:
-//   * p2_hash_rows  <- hash_rows (:121, kernel _hash_rows_kernel :97-117,
-//                      permutation _permute_planar :44-94)
-//   * p2_hash_pairs <- hash_pairs (:149, kernel _hash_pairs_kernel :138-145)
+//   * p2_hash_rows   <- hash_rows (:121, kernel _hash_rows_kernel :97-117,
+//                       permutation _permute_planar :44-94)
+//   * p2_merkle_fold <- hash_pairs (:149, kernel _hash_pairs_kernel :138-145),
+//                       one to nine Merkle layers a launch
 //
-// What bounds it: arithmetic, not memory.  One permutation is 4+4 full
-// rounds of 24 x^7 S-boxes (4 Montgomery products each) plus 24 diagonal
-// products in each of 21 partial rounds: about 1300 32x32->64 products
-// for 16 absorbed words (~80 per input word), against 4 bytes read per
-// word.  The design keeps the 24-cell state of a row in registers for the
-// whole absorb (one thread per row), so device memory sees only the input
-// stream and the 32-byte digest; the round constants and the internal
-// diagonal sit in __constant__ memory, where every thread of a warp reads
-// the same word at the same time (a broadcast).  Reads of matrix[c, r] are
-// coalesced across neighbouring rows.
+// What bounds it: the FMA pipe's multiplies, not memory.  One permutation
+// is 1356 Montgomery products (4 per x^7 S-box, 24 diagonal products per
+// partial round) against 4 bytes read per absorbed word.  Each product is
+// a 64-bit IMAD.WIDE, an IMAD and an IMAD.HI; on an NVIDIA H100 80GB HBM3
+// at 700 W the WIDE and HI forms issue at about half the IMAD rate
+// (scripts/torch_p2_bench.py --pipes), so the products alone hold the FMA
+// pipe for about 2.7 warp-cycles each.  The first port also reduced every
+// field add to [0, P), which cost about 6.7k ALU-pipe instructions a
+// permutation against 5.2k on the FMA pipe (SASS of the loops over rounds;
+// PERF.md has the counts).
+//
+// The design here reduces once per linear-layer output instead of once
+// per add, and leaves a value unreduced wherever its consumer accepts it,
+// which cuts the ALU pipe's share to about 4.8k instructions:
+//   * the external layer (4x4 circulant blocks plus column sums) and the
+//     internal layer's 24-cell sum accumulate 32-bit words exactly in
+//     64-bit sums, with the next round's constants folded in, and reduce
+//     each sum once (reduce64: a quotient estimate and one multiply-add,
+//     both full-rate IMADs, no compare);
+//   * a Montgomery product is left below 2P where the next product or sum
+//     accepts it, and uses the signed REDC, which needs no carry;
+//   * the 24-cell sum is a tree of three-input adds, so a partial round's
+//     dependency chain is short for the latency-bound launches (the final
+//     FRI digest and the top of each Merkle tree run a few threads).
+// Every lazy bound is stated beside the code that relies on it, and
+// tests/test_torch_poseidon2.py checks each of them on an int64 model of
+// this schedule under worst-case words.
+//
+// The state of a row lives in one thread's registers for a whole absorb
+// (hash_rows) or hash (merkle_fold); the round constants and the internal
+// diagonal sit in __constant__ memory, read by every thread of a warp at
+// once (a broadcast).  merkle_fold keeps the digests between the levels of
+// one launch in shared memory and writes every level to device memory.
 #include <cuda_runtime.h>
 
 #include "babybear.cuh"
 
 namespace {
+
+using bb::P;
 
 constexpr int CELLS = 24;
 constexpr int RATE = 16;
@@ -27,73 +53,138 @@ constexpr int OUT = 8;
 constexpr int HALF_FULL = 4;
 constexpr int PARTIAL = 21;
 constexpr int ROUNDS = 2 * HALF_FULL + PARTIAL;
+constexpr int FIRST_LAST_FULL = HALF_FULL + PARTIAL;  // round 25
 
-__constant__ uint32_t RC[ROUNDS * CELLS];
+// RCF[r]: the constants added right after the linear layer that precedes
+// round r (r = 0: the initial external layer; r = 29: none), laid out by
+// the host (hal/cuda/poseidon2.py folded_round_constants): a full round's
+// row holds its 24 constants, a partial round's row only cell 0's.
+__constant__ uint32_t RCF[(ROUNDS + 1) * CELLS];
 __constant__ uint32_t MINT[CELLS];
 
-__device__ __forceinline__ uint32_t dbl(uint32_t x) { return bb::add(x, x); }
+// Bounds below are in units of P.
 
-__device__ __forceinline__ uint32_t sbox(uint32_t x) {
-  uint32_t x2 = bb::mul(x, x);
-  uint32_t x4 = bb::mul(x2, x2);
-  return bb::mul(bb::mul(x4, x2), x);
+// a * b * 2^-32 mod P for a * b < P * 2^32, below a * b / 2^32 + P (so
+// below 2P).  Signed REDC: m = low(t) P^-1 makes low(t) = low(m P), so
+// (t - m P) / 2^32 = hi(t) - hi(m P) exactly, with no carry to track, and
+// adding P keeps it positive.  Three multiplies on the FMA pipe (one of
+// them the 64-bit product) and one three-input add.
+__device__ __forceinline__ uint32_t mul_lazy(uint32_t a, uint32_t b) {
+  const uint64_t t = (uint64_t)a * b;
+  const uint32_t m = (uint32_t)t * bb::M;
+  return (uint32_t)(t >> 32) + P - __umulhi(m, P);
 }
 
-// External layer: 4x4 circulant butterfly on each of the 6 blocks, then
-// every cell adds the sum of its column across blocks (mod.rs:137-176).
-__device__ __forceinline__ void m_ext(uint32_t* c) {
-  uint32_t sums[4] = {0, 0, 0, 0};
+// x - P where x >= P: for x < 2P the canonical word; for x < (1 + b) P,
+// a word below max(P, b P).
+__device__ __forceinline__ uint32_t sub_p(uint32_t x) {
+  return __viaddmin_u32(x, 0u - P, x);  // min(x - P mod 2^32, x)
+}
+
+// v < 2^39 -> a word below 1.009 P congruent to v, with multiplies that
+// keep only the low word (the full rate of the FMA pipe).  x = v >> 23 <
+// 2^16 and q = floor(x * 34952 / 2^23), with 34952 = floor(2^46 / P), never
+// exceed v / P and fall short of it by less than 1 + 1/240 + 273 * 2^-16
+// < 1.009, so v - q P lies in [0, 1.009 P) and its low word is
+// (uint32)v - q P.
+__device__ __forceinline__ uint32_t reduce64(uint64_t v) {
+  const uint32_t q = ((uint32_t)(v >> 23) * 34952u) >> 23;
+  return (uint32_t)v - q * P;
+}
+
+// x < 1.07P -> x^7 (Montgomery form), below 1.85P.  (The state's words
+// are below 1.01P here.)
+__device__ __forceinline__ uint32_t sbox(uint32_t x) {
+  const uint32_t x2 = sub_p(mul_lazy(x, x));  // x^2 < 1.15 P^2: < 1.54P -> < P
+  const uint32_t x4 = mul_lazy(x2, x2);       // < P^2 / 2^32 + P = 1.47P
+  const uint32_t x6 = mul_lazy(x4, x2);       // < 1.47 * 0.47 + 1 = 1.69P
+  return mul_lazy(x6, x);                     // 1.69 * 1.07 P^2 < P 2^32: < 1.85P
+}
+
+// The 4x4 circulant M4 of the external layer (mod.rs:137-176) on exact
+// sums: out = (5 7 1 3; 4 6 1 1; 1 3 5 7; 1 1 4 6) in.  Row sums 16, 12,
+// 16, 12.
+__device__ __forceinline__ void m4(uint64_t a, uint64_t b, uint64_t c,
+                                   uint64_t d, uint64_t* o) {
+  const uint64_t t0 = a + b, t1 = c + d;
+  const uint64_t t2 = b + b + t1, t3 = d + d + t0;
+  const uint64_t t4 = 4 * t1 + t3, t5 = 4 * t0 + t2;
+  o[0] = t3 + t5;
+  o[1] = t5;
+  o[2] = t2 + t4;
+  o[3] = t4;
+}
+
+// External layer, then the constants of round `next`: every block b gets
+// M4 c_b + M4 (sum over blocks of c_b) = M4 (c_b + column sums), exactly
+// in 64 bits, then one reduce64.  In: c < 1.85P.  The sum is below 112 *
+// 1.85P + P = 208P < 2^39.  Out: c < 1.009P.
+__device__ __forceinline__ void ext_layer(uint32_t* c, int next) {
+  uint64_t col[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    col[j] = ((uint64_t)c[j] + c[4 + j] + c[8 + j]) +
+             ((uint64_t)c[12 + j] + c[16 + j] + c[20 + j]);
+  uint64_t s[4];
+  m4(col[0], col[1], col[2], col[3], s);
+  const uint32_t* rc = RCF + next * CELLS;
 #pragma unroll
   for (int blk = 0; blk < CELLS / 4; ++blk) {
-    uint32_t c0 = c[4 * blk], c1 = c[4 * blk + 1];
-    uint32_t c2 = c[4 * blk + 2], c3 = c[4 * blk + 3];
-    uint32_t t0 = bb::add(c0, c1);
-    uint32_t t1 = bb::add(c2, c3);
-    uint32_t t2 = bb::add(dbl(c1), t1);
-    uint32_t t3 = bb::add(dbl(c3), t0);
-    uint32_t t4 = bb::add(dbl(dbl(t1)), t3);
-    uint32_t t5 = bb::add(dbl(dbl(t0)), t2);
-    uint32_t t6 = bb::add(t3, t5);
-    uint32_t t7 = bb::add(t2, t4);
-    c[4 * blk] = t6;
-    c[4 * blk + 1] = t5;
-    c[4 * blk + 2] = t7;
-    c[4 * blk + 3] = t4;
-    sums[0] = bb::add(sums[0], t6);
-    sums[1] = bb::add(sums[1], t5);
-    sums[2] = bb::add(sums[2], t7);
-    sums[3] = bb::add(sums[3], t4);
+    uint32_t* x = c + 4 * blk;
+    uint64_t o[4];
+    m4(x[0], x[1], x[2], x[3], o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = reduce64(o[j] + s[j] + rc[4 * blk + j]);
   }
-#pragma unroll
-  for (int i = 0; i < CELLS; ++i) c[i] = bb::add(c[i], sums[i % 4]);
 }
 
-// Internal layer: all-ones matrix plus diag(MINT).
-__device__ __forceinline__ void m_int(uint32_t* c) {
-  uint32_t total = c[0];
-#pragma unroll
-  for (int i = 1; i < CELLS; ++i) total = bb::add(total, c[i]);
-#pragma unroll
-  for (int i = 0; i < CELLS; ++i) c[i] = bb::add(total, bb::mul(c[i], MINT[i]));
-}
-
+// Full round `rnd`: S-boxes (round constants already folded in), then the
+// external layer with the next round's constants.  In and out c < 1.01P.
 __device__ __forceinline__ void full_round(uint32_t* c, int rnd) {
 #pragma unroll
-  for (int i = 0; i < CELLS; ++i) c[i] = sbox(bb::add(c[i], RC[rnd * CELLS + i]));
-  m_ext(c);
+  for (int i = 0; i < CELLS; ++i) c[i] = sbox(c[i]);  // < 1.85P
+  ext_layer(c, rnd + 1);
 }
 
+// Partial round `rnd`: S-box on cell 0, then the internal layer (the
+// all-ones matrix plus diag(MINT)) and cell 0's constant of round rnd+1.
+// In: c0 < 1.01P, c_i < 2.01P.  Out: the same.
+__device__ __forceinline__ void partial_round(uint32_t* c, int rnd) {
+  c[0] = sbox(c[0]);  // < 1.85P
+  // 24 words below 2.01P, summed in a tree of three-input adds: below 49P
+  // < 2^39
+  uint64_t s[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    s[k] = (uint64_t)c[3 * k] + c[3 * k + 1] + c[3 * k + 2];
+  const uint32_t t = reduce64((s[0] + s[1] + s[2]) + (s[3] + s[4] + s[5]) +
+                              (s[6] + s[7]));  // < 1.009P
+  // c_i MINT_i < 2.01 P^2 < P 2^32, so the product is below 1.95P and one
+  // sub_p makes it canonical; t + that < 2.01P < 2^32
+#pragma unroll
+  for (int i = 1; i < CELLS; ++i) c[i] = t + sub_p(mul_lazy(c[i], MINT[i]));
+  // cell 0: (t + rc) < 2.01P -> < 1.01P; plus a canonical product < 2.01P
+  // -> < 1.01P, as the next S-box needs
+  const uint32_t z0 = sub_p(mul_lazy(c[0], MINT[0]));  // 1.85P * P: < 1.87P -> < P
+  c[0] = sub_p(sub_p(t + RCF[(rnd + 1) * CELLS]) + z0);
+}
+
+// The permutation (reference mod.rs:180-213).  In: c < 1.85P.  Out:
+// c < 1.01P; callers apply sub_p to the words they store.
 __device__ void permute(uint32_t* c) {
-  m_ext(c);
+  ext_layer(c, 0);
 #pragma unroll 1
   for (int rnd = 0; rnd < HALF_FULL; ++rnd) full_round(c, rnd);
 #pragma unroll 1
-  for (int rnd = HALF_FULL; rnd < HALF_FULL + PARTIAL; ++rnd) {
-    c[0] = sbox(bb::add(c[0], RC[rnd * CELLS]));
-    m_int(c);
-  }
+  for (int rnd = HALF_FULL; rnd < FIRST_LAST_FULL; ++rnd)
+    partial_round(c, rnd);
+  // cell 0 holds round 25's constant already (the last partial round);
+  // the others add theirs: c < 2.01P -> < 1.01P, + rc < 2.01P -> < 1.01P
+#pragma unroll
+  for (int i = 1; i < CELLS; ++i)
+    c[i] = sub_p(sub_p(c[i]) + RCF[FIRST_LAST_FULL * CELLS + i]);
 #pragma unroll 1
-  for (int rnd = HALF_FULL + PARTIAL; rnd < ROUNDS; ++rnd) full_round(c, rnd);
+  for (int rnd = FIRST_LAST_FULL; rnd < ROUNDS; ++rnd) full_round(c, rnd);
 }
 
 // One thread per row: absorb `cols` words of column r of a (cols, rows)
@@ -122,34 +213,79 @@ __global__ void hash_rows_kernel(const uint32_t* __restrict__ mat,
     permute(c);
   }
 #pragma unroll
-  for (int i = 0; i < OUT; ++i) out[r * OUT + i] = c[i];
+  for (int i = 0; i < OUT; ++i) out[r * OUT + i] = sub_p(c[i]);
 }
 
-// One thread per output digest: state = left(8) | right(8) | 0(8).
-__global__ void hash_pairs_kernel(const uint32_t* __restrict__ left,
-                                  const uint32_t* __restrict__ right,
-                                  uint32_t* __restrict__ out, uint64_t n,
-                                  uint64_t lstride, uint64_t rstride) {
-  uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t c[CELLS];
+constexpr int THREADS = 128;
+constexpr int FOLD_THREADS = 256;  // 512 digests: up to 9 levels a launch
+
+__device__ __forceinline__ void compress(uint32_t* c, const uint32_t* l,
+                                         const uint32_t* r) {
 #pragma unroll
   for (int j = 0; j < OUT; ++j) {
-    c[j] = left[i * lstride + j];
-    c[OUT + j] = right[i * rstride + j];
+    c[j] = l[j];
+    c[OUT + j] = r[j];
     c[2 * OUT + j] = 0;
   }
   permute(c);
 #pragma unroll
-  for (int j = 0; j < OUT; ++j) out[i * OUT + j] = c[j];
+  for (int j = 0; j < OUT; ++j) c[j] = sub_p(c[j]);
 }
 
-constexpr int THREADS = 128;
+// `levels` Merkle levels: level 1 hashes the pairs (left[i], right[i]),
+// i < n; level k > 1 hashes pairs of level k-1 digests.  Level k's n >>
+// (k-1) digests are written consecutively after level k-1's, from `out`.
+// A block of FOLD_THREADS threads takes 2 * FOLD_THREADS inputs and keeps
+// its level's digests in shared memory for the next; when levels > 1, n
+// is a multiple of 2^(levels-1).
+__global__ void __launch_bounds__(FOLD_THREADS)
+    merkle_fold_kernel(const uint32_t* __restrict__ left,
+                       const uint32_t* __restrict__ right,
+                       uint32_t* __restrict__ out, uint64_t n,
+                       uint64_t lstride, uint64_t rstride, int levels) {
+  __shared__ uint32_t level_digests[FOLD_THREADS * OUT];
+  const uint64_t base = (uint64_t)blockIdx.x * FOLD_THREADS;
+  const uint32_t t = threadIdx.x;
+  const uint64_t here = n - base < FOLD_THREADS ? n - base : FOLD_THREADS;
+  uint32_t c[CELLS];
+  uint64_t width = n;  // digests of the current level
+  uint64_t first = base;
+  for (int k = 0; k < levels; ++k) {
+    const uint64_t active = here >> k;
+    uint32_t l[OUT], r[OUT];
+    if (k > 0) {
+      if (t < active) {
+#pragma unroll
+        for (int j = 0; j < OUT; ++j) {
+          l[j] = level_digests[(2 * t) * OUT + j];
+          r[j] = level_digests[(2 * t + 1) * OUT + j];
+        }
+      }
+      __syncthreads();  // every read of level k-1 before any write of k
+    }
+    if (t < active) {
+      if (k == 0)
+        compress(c, left + (base + t) * lstride, right + (base + t) * rstride);
+      else
+        compress(c, l, r);
+#pragma unroll
+      for (int j = 0; j < OUT; ++j) {
+        out[(first + t) * OUT + j] = c[j];
+        level_digests[t * OUT + j] = c[j];
+      }
+    }
+    __syncthreads();
+    out += width * OUT;
+    width >>= 1;
+    first >>= 1;
+  }
+}
 
 }  // namespace
 
-extern "C" int p2_set_constants(const uint32_t* rc, const uint32_t* mint) {
-  cudaError_t e = cudaMemcpyToSymbol(RC, rc, sizeof(uint32_t) * ROUNDS * CELLS);
+extern "C" int p2_set_constants(const uint32_t* rcf, const uint32_t* mint) {
+  cudaError_t e =
+      cudaMemcpyToSymbol(RCF, rcf, sizeof(uint32_t) * (ROUNDS + 1) * CELLS);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaMemcpyToSymbol(MINT, mint, sizeof(uint32_t) * CELLS);
 }
@@ -163,12 +299,16 @@ extern "C" int p2_hash_rows(const uint32_t* mat, uint32_t* out, uint32_t cols,
   return (int)cudaGetLastError();
 }
 
-extern "C" int p2_hash_pairs(const uint32_t* left, const uint32_t* right,
-                             uint32_t* out, uint64_t n, uint64_t lstride,
-                             uint64_t rstride, void* stream) {
+extern "C" int p2_merkle_fold(const uint32_t* left, const uint32_t* right,
+                              uint32_t* out, uint64_t n, uint64_t lstride,
+                              uint64_t rstride, int levels, void* stream) {
   if (n == 0) return 0;
-  uint64_t blocks = (n + THREADS - 1) / THREADS;
-  hash_pairs_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      left, right, out, n, lstride, rstride);
+  if (levels < 1 || (1ull << (levels - 1)) > FOLD_THREADS ||
+      (n & ((1ull << (levels - 1)) - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  uint64_t blocks = (n + FOLD_THREADS - 1) / FOLD_THREADS;
+  unsigned threads = n < FOLD_THREADS ? (unsigned)n : FOLD_THREADS;
+  merkle_fold_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      left, right, out, n, lstride, rstride, levels);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,7 @@ _V, _U32, _U64 = C.c_void_p, C.c_uint32, C.c_uint64
 _SIGNATURES = {
     "p2_set_constants": (_V, _V),
     "p2_hash_rows": (_V, _V, _U32, _U64, _V),
-    "p2_hash_pairs": (_V, _V, _V, _U64, _U64, _U64, _V),
+    "p2_merkle_fold": (_V, _V, _V, _U64, _U64, _U64, C.c_int, _V),
     "ntt_evaluate": (_V, _V, _V, _V, _V, *[_U32] * 6, _V),
     "ntt_interpolate": (_V, _V, _V, _V, _V, *[_U32] * 6, _V),
 }

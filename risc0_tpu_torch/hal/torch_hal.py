@@ -208,14 +208,11 @@ def fri_fold(planar_coeffs, mix):
 # ---------------------------------------------------------------------------
 
 def merkle_layers(matrix):
-    """All Merkle layers of a (cols, rows) matrix: layers[0] = leaf digests
-    (rows, 8), layers[-1] = (1, 8) root (reference prove/merkle.rs:54-80)."""
-    cur = kp2.hash_rows(matrix)
-    layers = [cur]
-    while cur.shape[0] > 1:
-        cur = kp2.hash_pairs(cur[0::2], cur[1::2])
-        layers.append(cur)
-    return layers
+    """All Merkle layers of a (cols, rows) matrix, rows a power of two:
+    layers[0] = leaf digests (rows, 8), layers[-1] = (1, 8) root
+    (reference prove/merkle.rs:54-80)."""
+    leaves = kp2.hash_rows(matrix)
+    return [leaves] + kp2.merkle_fold(leaves)
 
 
 def commit_pipeline(witness, encode: bool = False, device="cuda"):

@@ -45,12 +45,57 @@ def test_field_edge_words_through_ntt(dev):
     assert torch.equal(kntt.interpolate_ntt(x), kntt.interpolate_ntt_plain(x))
 
 
-@pytest.mark.parametrize("cols", [0, 1, 15, 16, 17, 64, 211])
+@pytest.mark.parametrize("cols", [0, 1, 15, 16, 17, 64, 103, 211, 1024])
 @pytest.mark.parametrize("rows", [1, 37, 1024])
 def test_hash_rows_kernel(dev, cols, rows):
     rng = np.random.default_rng(cols * 1000 + rows)
     m = _words(rng, (cols, rows), dev)
     assert torch.equal(kp2.hash_rows(m), kp2.hash_rows_plain(m))
+
+
+def _edge_words(dev, shape):
+    # all 0, all P - 1, and the edge words mixed (the lazy reductions'
+    # extremes: 0, 1, P - 1, P - 2 and the Montgomery one)
+    rng = np.random.default_rng(17)
+    mixed = rng.choice(np.array([0, 1, F.P - 1, F.P - 2, F.R % F.P],
+                                np.uint32), shape)
+    out = [np.zeros(shape, np.uint32), np.full(shape, F.P - 1, np.uint32),
+           mixed]
+    return [torch.from_numpy(a.view(np.int32)).to(dev) for a in out]
+
+
+@pytest.mark.parametrize("cols", [1, 16, 17, 211])
+def test_hash_rows_kernel_edge_words(dev, cols):
+    for m in _edge_words(dev, (cols, 64)):
+        assert torch.equal(kp2.hash_rows(m), kp2.hash_rows_plain(m))
+
+
+def test_pair_kernels_edge_words(dev):
+    for leaves in _edge_words(dev, (64, 8)):
+        assert torch.equal(kp2.hash_pairs(leaves[0::2], leaves[1::2]),
+                           kp2.hash_pairs_plain(leaves[0::2], leaves[1::2]))
+        for got, want in zip(kp2.merkle_fold(leaves),
+                             kp2.merkle_fold_plain(leaves)):
+            assert torch.equal(got, want)
+
+
+# every boundary of the fold plan: one launch up to 2^9 leaves, then a
+# second launch of 1 to 3 levels; 2^22 is the prove's tree (9 + 9 + 4)
+@pytest.mark.parametrize("n_bits", list(range(13)) + [22])
+def test_merkle_fold_kernel(dev, n_bits):
+    leaves = _words(np.random.default_rng(n_bits), (1 << n_bits, 8), dev)
+    got = kp2.merkle_fold(leaves)
+    want = kp2.merkle_fold_plain(leaves)
+    assert len(got) == len(want) == n_bits
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_merkle_fold_counts_its_launches(dev):
+    leaves = _words(np.random.default_rng(2), (1 << 20, 8), dev)
+    before = kp2.hash_pairs.launches
+    kp2.merkle_fold(leaves)
+    assert kp2.hash_pairs.launches - before == len(kp2.fold_plan(20)) == 3
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 1000, 4096])
