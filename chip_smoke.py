@@ -17,17 +17,26 @@ non-zero:
                kernels also meet words at the edges of their lazy bounds
   4. check   - the fib seal at po2 6 proved on the card must equal the JAX
                package's seal (tests/data/fib_seal_po2_6_seed_0.npy)
-  5. prove   - the main path: the loop guest executed at segment po2 20,
-               proved on the card, verified by the port's verifier, a
+  5. witgen  - on the loop guest's po2 20 segment, the host C++ witgens
+               against the device ones, bit for bit: exec (data, global,
+               both lookup tables) and, with a fixed mix, accum (decoded);
+               each side's time (the device side synchronised), the device
+               side's peak memory and its kernel launches (torch.profiler,
+               a second run)
+  6. prove   - the main path: that segment proved on the card (device
+               accum witgen), verified by the port's verifier, a
                corrupted seal rejected; prove time, cycles/s, the stage
                table (device times: every top-level scope synchronises
                the card), peak device memory and each kernel's launch
-               count (every count must be > 0)
+               count (every count must be > 0); then proved once more
+               with the exec witgen on the device, whose seal must be the
+               same bytes and verify
 
 The last two lines are a JSON object {"kernels": [...]} and
 {"ok": true, "device": {...}}.  Imports nothing of jax.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -211,18 +220,81 @@ def phase_check(dev):
         raise AssertionError("fib seal on the card differs from the JAX seal")
 
 
-def phase_prove(dev, counters):
+def _wall_s(fn):
+    """(seconds, result) of fn, ended by a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _device_launches(fn) -> int:
+    """Kernels that one run of fn launches, from torch.profiler (device
+    copies and sets are not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower())
+
+
+def phase_witgen(dev, seg):
+    """Host C++ against device witgens on the prove's segment."""
+    from risc0_tpu_torch import loop_guest
+    from risc0_tpu_torch import field as F
+    from risc0_tpu_torch.circuit.rv32im import witgen
+    from risc0_tpu_torch.circuit.rv32im.accum_device import \
+        witgen_accum_device
+    from risc0_tpu_torch.circuit.rv32im.exec_device import \
+        witgen_exec_device
+    from risc0_tpu_torch.convert import to_numpy
+
+    rz = loop_guest.RAND_Z
+    mix = np.random.default_rng(7).integers(0, P, 36).astype(np.uint32)
+    host_s, host = _wall_s(lambda: witgen.witgen_exec(seg, rand_z=rz))
+    torch.cuda.reset_peak_memory_stats()
+    dev_s, res = _wall_s(lambda: witgen_exec_device(seg, rand_z=rz,
+                                                    device=dev))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = {"data": np.array_equal(to_numpy(res["data"]), host["data"])}
+    for key in ("global", "tables_u8", "tables_u16"):
+        same[key] = np.array_equal(res[key], host[key])
+    launches = _device_launches(lambda: witgen_exec_device(
+        seg, rand_z=rz, device=dev))
+    print(f"witgen exec: host C++ {host_s:.3f} s; device {dev_s:.3f} s, "
+          f"peak {peak:.2f} GiB, {launches} kernel launches; equal "
+          f"{json.dumps(same)}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"device exec witgen differs: {same}")
+
+    host_s, want = _wall_s(lambda: witgen.witgen_accum(host, mix))
+    # the device accum reads the device exec's data where it lies
+    torch.cuda.reset_peak_memory_stats()
+    dev_s, got = _wall_s(lambda: witgen_accum_device(res, mix, device=dev))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = np.array_equal(F.decode_np(to_numpy(got)), want)
+    del got
+    launches = _device_launches(lambda: witgen_accum_device(res, mix,
+                                                            device=dev))
+    print(f"witgen accum: host C++ {host_s:.3f} s; device {dev_s:.3f} s, "
+          f"peak {peak:.2f} GiB (the exec's data resident), {launches} "
+          f"kernel launches; equal {same}", flush=True)
+    if not same:
+        raise AssertionError("device accum witgen differs from the host's")
+    del res
+    torch.cuda.empty_cache()
+
+
+def phase_prove(dev, seg, counters):
     from risc0_tpu_torch import loop_guest, perf
     from risc0_tpu_torch.circuit.rv32im.prove import prove_segment
     from risc0_tpu_torch.circuit.rv32im.verify import verify_rv32im_seal
     from risc0_tpu_torch.verify.verifier import VerificationError
-
-    t0 = time.perf_counter()
-    seg = loop_guest.segment(PO2)
-    print(f"prove: executed loop guest, segment po2 {seg.po2} "
-          f"({time.perf_counter() - t0:.2f} s)", flush=True)
-    if seg.po2 != PO2:
-        raise AssertionError(f"segment po2 {seg.po2} != {PO2}")
 
     for fn in counters:
         fn.launches = 0
@@ -253,7 +325,8 @@ def phase_prove(dev, counters):
 
     cycles = 1 << seg.po2
     print(f"prove: po2 {seg.po2}, {cycles} cycles in {prove_s:.3f} s = "
-          f"{cycles / prove_s:.1f} cycles/s; seal {len(seal)} words", flush=True)
+          f"{cycles / prove_s:.1f} cycles/s; seal {len(seal)} words, "
+          f"SHA-256 {hashlib.sha256(seal.tobytes()).hexdigest()}", flush=True)
     print(f"prove: verified in {verify_s:.2f} s; corrupted seal rejected "
           f"({rejected})", flush=True)
     print(f"prove: peak device memory {peak / 2**30:.2f} GiB", flush=True)
@@ -266,6 +339,20 @@ def phase_prove(dev, counters):
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
+
+    perf.reset()
+    exec_s, seal2 = _wall_s(lambda: prove_segment(
+        seg, rand_z=loop_guest.RAND_Z, device=dev, exec="device"))
+    same = np.array_equal(seal2, seal)
+    verify_rv32im_seal(seal2)
+    stages = perf.report()
+    print(f"prove (exec on the device): {exec_s:.3f} s, witgen_exec "
+          f"{stages['witgen_exec'][1]:.3f} s, witgen_accum "
+          f"{stages['witgen_accum'][1]:.3f} s; seal verified, same bytes "
+          f"as the main path's: {same}", flush=True)
+    if not same:
+        raise AssertionError("the device-exec seal differs from the main "
+                             "path's")
     return launches
 
 
@@ -294,9 +381,18 @@ def main() -> int:
 
     rec = phase_kernels(dev, kntt, kp2, ntt_mod)
     phase_check(dev)
+
+    from risc0_tpu_torch import loop_guest
+    t0 = time.perf_counter()
+    seg = loop_guest.segment(PO2)
+    print(f"executed loop guest, segment po2 {seg.po2} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if seg.po2 != PO2:
+        raise AssertionError(f"segment po2 {seg.po2} != {PO2}")
+    phase_witgen(dev, seg)
     counters = [kp2.hash_rows, kp2.hash_pairs, kntt.evaluate_ntt,
                 kntt.interpolate_ntt]
-    launches = phase_prove(dev, counters)
+    launches = phase_prove(dev, seg, counters)
 
     meta = {
         "hash_rows": ("poseidon2.cu", "risc0_tpu/hal/pallas/poseidon2.py:121"),

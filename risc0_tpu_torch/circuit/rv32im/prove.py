@@ -5,8 +5,13 @@ The seal flow is the reference's (risc0/circuit/rv32im/src/prove/hal/
 mod.rs:143-224 prove_core): seal version word, proof-system and circuit
 info commits, globals||po2 header, code and data group commits,
 Fiat-Shamir mix, accum commit, then the generic DEEP-ALI/FRI finalize.
-Exec and accum witness generation run on the host (C++ through
-``witgen.py``); everything after runs on `device`.
+
+The accum witness is generated on `device` (``accum_device.py``), as in the
+reference; ``accum="host"`` runs the host C++ instead (``witgen.py``), for
+diagnostics and A/B checks.  The exec witness is generated on the host by
+default, as in the reference; ``exec="device"`` generates it on `device`
+(``exec_device.py``), where the data matrix stays for its commit and the
+device accum.  Everything else runs on `device`.
 """
 
 from __future__ import annotations
@@ -17,14 +22,16 @@ import numpy as np
 
 from ... import field as F
 from ... import perf
-from ...convert import card
+from ...convert import card, to_numpy
 from ...hash.suite import POSEIDON2
 from ...prove.prover import Prover
 from ...taps import (REGISTER_GROUP_ACCUM, REGISTER_GROUP_CODE,
                      REGISTER_GROUP_DATA)
 from ...verify import verifier as V
 from .. import ir_range
+from .accum_device import witgen_accum_device
 from .circuit import load_circuit
+from .exec_device import witgen_exec_device
 from .verify import RV32IM_SEAL_VERSION
 from .witgen import REGCOUNT_MIX, witgen_accum, witgen_exec
 
@@ -63,23 +70,33 @@ def _range_plan(circuit):
     return ir_range.build_range_plan(circuit)
 
 
-def segment_preflight(seg, rand_z=None, rng=None, device=None):
-    """Host half of segment proving: preflight re-execution + exec witness
-    generation (reference ProverServer::segment_preflight)."""
+def segment_preflight(seg, rand_z=None, rng=None, device=None,
+                      exec: str = "host"):
+    """First half of segment proving: preflight re-execution + exec witness
+    generation (reference ProverServer::segment_preflight), by the host C++
+    (exec="host") or on `device` (exec="device")."""
+    if exec not in ("host", "device"):
+        raise ValueError(f"exec={exec!r}: 'host' or 'device'")
     rng = rng or np.random.default_rng()
     if rand_z is None:
         rand_z = tuple(int(x) for x in rng.integers(0, F.P, 4))
     with perf.scope("witgen_exec", sync=device):
+        if exec == "device":
+            return witgen_exec_device(seg, rand_z=rand_z, device=device)
         return witgen_exec(seg, rand_z=rand_z)
 
 
 def prove_segment(seg, rand_z=None, rng=None, device="cuda",
-                  eval_chunk: int = EVAL_CHUNK):
+                  eval_chunk: int = EVAL_CHUNK, exec: str = "host",
+                  accum: str = "device"):
     """Prove one executed segment on `device` (the card unless the caller
-    names another); returns the seal (u32)."""
+    names another); returns the seal (u32).  exec and accum say where each
+    witness is generated: "host" (C++) or "device"."""
     device = card(device)
-    res = segment_preflight(seg, rand_z=rand_z, rng=rng, device=device)
-    return prove_segment_core(res, device=device, eval_chunk=eval_chunk)
+    res = segment_preflight(seg, rand_z=rand_z, rng=rng, device=device,
+                            exec=exec)
+    return prove_segment_core(res, device=device, eval_chunk=eval_chunk,
+                              accum=accum)
 
 
 def _info_digest(suite, info: bytes):
@@ -87,11 +104,15 @@ def _info_digest(suite, info: bytes):
     return suite.hash_elem_slice(F.encode_np(words.astype(np.uint32)))
 
 
-def prove_segment_core(res, device="cuda", eval_chunk: int = EVAL_CHUNK):
-    """Device half of segment proving over a preflight/witgen result, with
-    the accum witness generated on the host (reference
-    ProverServer::prove_segment_core with RISC0_TPU_HOST_ACCUM=1)."""
+def prove_segment_core(res, device="cuda", eval_chunk: int = EVAL_CHUNK,
+                       accum: str = "device"):
+    """Device half of segment proving over a preflight/witgen result
+    (reference ProverServer::prove_segment_core).  The accum witness is
+    generated on `device` (accum="device", the reference's default) or by
+    the host C++ (accum="host"); a failing device accum raises."""
     device = card(device)
+    if accum not in ("host", "device"):
+        raise ValueError(f"accum={accum!r}: 'host' or 'device'")
     suite = POSEIDON2
     circuit = load_circuit()
     cycles = res["rows"]
@@ -121,9 +142,15 @@ def prove_segment_core(res, device="cuda", eval_chunk: int = EVAL_CHUNK):
 
     mix_m = np.array([iop.random_elem() for _ in range(REGCOUNT_MIX)],
                      np.uint32)
+    mix = F.decode_np(mix_m)
     with perf.scope("witgen_accum", sync=device):
-        accum = witgen_accum(res, F.decode_np(mix_m))
-    prover.commit_group(REGISTER_GROUP_ACCUM, accum, encode=True)
+        if accum == "device":
+            # Montgomery words: the commit skips its encode pass
+            accum_w = witgen_accum_device(res, mix, device=device)
+        else:
+            accum_w = witgen_accum(dict(res, data=to_numpy(res["data"])), mix)
+    prover.commit_group(REGISTER_GROUP_ACCUM, accum_w,
+                        encode=accum == "host")
 
     hal_obj = Rv32imCircuitHal(circuit, chunk=eval_chunk)
     return prover.finalize([mix_m, global_m], hal_obj)

@@ -1,6 +1,7 @@
 """Card-only checks of the CUDA kernels of risc0_tpu_torch against their
-plain torch versions, on the same CUDA inputs.  Field arithmetic is exact,
-so every comparison is bit for bit (torch.equal).
+plain torch versions, on the same CUDA inputs, and of the device witgens
+and the rv32im prove on the card against their CPU and host runs.  Field
+arithmetic is exact, so every comparison is bit for bit.
 
 These skip where torch sees no CUDA device.  This file imports no jax, so
 it also runs on a machine without it:
@@ -177,3 +178,52 @@ def test_wrappers_count_launches(dev):
     kp2.hash_rows(x)
     assert (kntt.evaluate_ntt.launches, kp2.hash_rows.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+@pytest.fixture(scope="module")
+def loop_segment():
+    import os
+
+    from risc0_tpu_torch.zkvm.exec import ExecutorEnv, ExecutorImpl
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "guests", "loop.bin"), "rb") as f:
+        elf = f.read()
+    env = ExecutorEnv(segment_po2=16).write_slice((100).to_bytes(4, "little"))
+    return ExecutorImpl(env, elf).run().segments[0]
+
+
+def test_device_witgens_on_the_card_equal_their_cpu_runs(dev, loop_segment):
+    # 2^14 rows; the CPU runs take small chunks, the card its defaults
+    from risc0_tpu_torch.circuit.rv32im.accum_device import \
+        witgen_accum_device
+    from risc0_tpu_torch.circuit.rv32im.exec_device import \
+        witgen_exec_device
+
+    rand_z = (5, 6, 7, 8)
+    cpu = witgen_exec_device(loop_segment, rand_z=rand_z, device="cpu",
+                             p2_chunk=1 << 11)
+    card = witgen_exec_device(loop_segment, rand_z=rand_z, device=dev)
+    assert cpu["rows"] == card["rows"] == 1 << 14
+    assert card["data"].device.type == "cuda"
+    assert torch.equal(card["data"].cpu(), cpu["data"])
+    for key in ("global", "tables_u8", "tables_u16"):
+        assert np.array_equal(card[key], cpu[key]), key
+    mix = np.random.default_rng(3).integers(0, F.P, 36).astype(np.uint32)
+    want = witgen_accum_device(cpu, mix, device="cpu", chunk=1 << 11)
+    got = witgen_accum_device(card, mix, device=dev)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+def test_device_accum_prove_gives_the_host_accum_seal(dev, loop_segment):
+    from risc0_tpu_torch.circuit.rv32im.prove import prove_segment
+    from risc0_tpu_torch.circuit.rv32im.verify import verify_rv32im_seal
+
+    seals = [prove_segment(loop_segment, rand_z=(1, 2, 3, 4), device=dev,
+                           exec=ex, accum=acc)
+             for ex, acc in (("host", "device"), ("host", "host"),
+                             ("device", "device"))]
+    assert np.array_equal(seals[0], seals[1])
+    assert np.array_equal(seals[0], seals[2])
+    assert len(verify_rv32im_seal(seals[0])) == 90

@@ -50,6 +50,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     out = json.loads(_run(_IMPORT_ALL))
     assert "risc0_tpu_torch.circuit.rv32im.prove" in out["imported"]
     assert "risc0_tpu_torch.zkvm.exec" in out["imported"]
+    assert "risc0_tpu_torch.circuit.rv32im.accum_device" in out["imported"]
+    assert "risc0_tpu_torch.circuit.rv32im.exec_device" in out["imported"]
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
 
@@ -78,6 +80,8 @@ _ENTRY_POINTS = {
     "commit_pipeline": "hal.commit_pipeline(np.zeros((1, 8), np.uint32))",
     "commit_pipeline_chunked":
         "hal.commit_pipeline_chunked(np.zeros((1, 8), np.uint32))",
+    "witgen_accum_device": "accum_device.witgen_accum_device(None, None)",
+    "witgen_exec_device": "exec_device.witgen_exec_device(None)",
 }
 
 _CALL_ALL = """
@@ -85,6 +89,7 @@ import json
 import numpy as np
 import torch
 from risc0_tpu_torch.circuit import fib
+from risc0_tpu_torch.circuit.rv32im import accum_device, exec_device
 from risc0_tpu_torch.circuit.rv32im import prove as rv
 from risc0_tpu_torch.hal import torch_hal as hal
 from risc0_tpu_torch.hash.suite import POSEIDON2
