@@ -31,11 +31,26 @@ non-zero:
                count (every count must be > 0); then proved once more
                with the exec witgen on the device, whose seal must be the
                same bytes and verify
+  7. recursion - the control IDs of keccak_lift_14 (the official digest),
+               lift_rv32im_20 and join committed on the card; phase 6's
+               seal lifted with lift_rv32im_20 into a verified succinct
+               receipt of the seal's claim, a flipped word rejected; a
+               two-segment loop session at segment po2 16 (the executor
+               sizes the last segment down to po2 15) proved on the card and
+               compressed (two lifts and a join) into one verified
+               succinct receipt of the session's claim.  For each
+               recursion prove: wall time, seal words and SHA-256, the
+               stage table and peak device memory; each kernel's launch
+               count over the lift and the compress (every count > 0)
 
-The last two lines are a JSON object {"kernels": [...]} and
+Phase 3 also holds the kernels at the recursion prove's shapes (12, 23
+and 128 columns at 2^18 rows, the check group, trees of 2^20 leaves, its
+FRI rounds).  The last two lines are a JSON object {"kernels": [...]}
+(launches: phase 6's prove; launches_recursion: phase 7's) and
 {"ok": true, "device": {...}}.  Imports nothing of jax.
 """
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -126,11 +141,15 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
         torch.cuda.empty_cache()
 
     # hash_rows at every shape of the prove: data, accum, check and code
-    # groups, the FRI rounds, the final FRI digest (prove/fri.py)
+    # groups, the FRI rounds, the final FRI digest (prove/fri.py); then the
+    # recursion prove's: data, code, accum and check groups, FRI rounds and
+    # final digest
     n22 = 1 << 22
     big = _words(rng, (211, n22), dev)
     for cols, bits in ((211, 22), (103, 22), (16, 22), (1, 22), (64, 18),
-                       (64, 14), (64, 10), (1024, 0)):
+                       (64, 14), (64, 10), (1024, 0),
+                       (128, 20), (23, 20), (12, 20), (16, 20), (64, 16),
+                       (64, 12), (64, 8), (256, 0)):
         m = big[:cols] if bits == 22 else _words(rng, (cols, 1 << bits), dev)
         perms = (1 << bits) * max(1, -(-cols // 16))
         compare("hash_rows", f"({cols}, 2^{bits})", lambda: kp2.hash_rows(m),
@@ -139,9 +158,10 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
                 TIMED_REPS if bits >= 18 else 20)
         del m
     del big
-    # the Merkle fold above the leaves of each tree of the prove: 2^n - 1
-    # compressions, the leaves read once and every layer written once
-    for bits in (22, 18, 14, 10):
+    # the Merkle fold above the leaves of each tree of the prove and of the
+    # recursion prove: 2^n - 1 compressions, the leaves read once and every
+    # layer written once
+    for bits in (22, 18, 14, 10, 20, 16, 12, 8):
         leaves = _words(rng, (1 << bits, 8), dev)
         compare("hash_pairs", f"fold 2^{bits} leaves",
                 lambda: kp2.merkle_fold(leaves),
@@ -177,10 +197,13 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
                                      f"on edge words ({label})")
 
     # evaluate: the commit LDEs (data chunks of 32, accum 103, one data
-    # group at once), 2^23 and 2^24, and an expand at or above k1
+    # group at once), 2^23 and 2^24, and an expand at or above k1; then the
+    # recursion prove's LDEs (data, code, accum, check) and FRI rounds
     k1_22 = kntt.split(22)[0]
     cases = [(211, 20, 2), (32, 20, 2), (103, 20, 2), (2, 21, 2), (2, 22, 2),
-             (2, 22 - k1_22 - 1, k1_22 + 1)]
+             (2, 22 - k1_22 - 1, k1_22 + 1),
+             (128, 18, 2), (23, 18, 2), (12, 18, 2), (16, 18, 2),
+             (4, 18, 2), (4, 14, 2), (4, 10, 2)]
     for rows, c_bits, eb in cases:
         c = _words(rng, (rows, 1 << c_bits), dev)
         x = ntt_mod.expand(c, eb)
@@ -192,9 +215,10 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
                 lambda: kntt.evaluate_ntt_plain(x, eb),
                 _ntt_bound(rows, n_bits, n_bits - eb, False))
         del x
-    # interpolate: the commit iNTTs, the check poly, 2^23 and 2^24
+    # interpolate: the commit iNTTs, the check poly, 2^23 and 2^24; then
+    # the recursion prove's commits and check poly
     for rows, n_bits in ((211, 20), (32, 20), (103, 20), (4, 22), (2, 23),
-                         (2, 24)):
+                         (2, 24), (128, 18), (23, 18), (12, 18), (4, 20)):
         x = _words(rng, (rows, 1 << n_bits), dev)
         compare("interpolate_ntt", f"({rows}, 2^{n_bits})",
                 lambda: kntt.interpolate_ntt(x),
@@ -353,6 +377,151 @@ def phase_prove(dev, seg, counters):
     if not same:
         raise AssertionError("the device-exec seal differs from the main "
                              "path's")
+    return launches, seal
+
+
+KECCAK_LIFT_14_ID = ("92631f2b8dc9431cb2abdc1e82ac2e30"
+                     "deaf086a36e51e4aa60ad0516bf5b748")
+REC_SESSION_PO2 = 16
+REC_STAGES = ("rec_preflight", "rec_witgen", "commit_group.1",
+              "commit_group.2", "rec_accum", "commit_group.0", "eval_check",
+              "check_commit", "tap_eval", "combos", "fri_prove")
+
+
+def _watch_recursion_proves():
+    """Record each recursion prove of the phase: its wall time (ended by a
+    device sync), seal, stage table and peak device memory.  A shim around
+    prove_program that only observes; returns the list it fills."""
+    from risc0_tpu_torch import perf
+    from risc0_tpu_torch.circuit.recursion import prove as rprove
+
+    log = []
+    inner = rprove.prove_program
+
+    def timed(program, input_words, **kw):
+        perf.reset()
+        torch.cuda.reset_peak_memory_stats()
+        secs, (seal, out) = _wall_s(lambda: inner(program, input_words, **kw))
+        log.append({"s": secs, "seal": seal, "stages": perf.report(),
+                    "peak": torch.cuda.max_memory_allocated()})
+        return seal, out
+
+    rprove.prove_program = timed
+    return log
+
+
+def _print_recursion_prove(name, rec):
+    seal = np.asarray(rec["seal"], np.uint32)
+    print(f"recursion {name}: {rec['s']:.3f} s, seal {len(seal)} words, "
+          f"SHA-256 {hashlib.sha256(seal.tobytes()).hexdigest()}, peak "
+          f"device memory {rec['peak'] / 2**30:.2f} GiB; stages (s, calls): "
+          + ", ".join(f"{k} {rec['stages'][k][1]:.3f} x{rec['stages'][k][0]}"
+                      for k in REC_STAGES if k in rec["stages"]), flush=True)
+
+
+def phase_recursion(dev, seal20, counters):
+    """Control IDs on the card; lift the po2 20 seal; compress a
+    two-segment session.  Returns {kernel: launches over the lift and the
+    compress}."""
+    from risc0_tpu_torch import loop_guest
+    from risc0_tpu_torch.circuit.recursion.predicates import (
+        load_own_program, own_control_ids)
+    from risc0_tpu_torch.circuit.recursion.prove import load_keccak_lift
+    from risc0_tpu_torch.circuit.rv32im.claim import decode_claim
+    from risc0_tpu_torch.circuit.rv32im.prove import prove_segment
+    from risc0_tpu_torch.zkvm.receipt import (CompositeReceipt,
+                                              SegmentReceipt,
+                                              VerificationError,
+                                              VerifierContext, session_claim)
+    from risc0_tpu_torch.zkvm.recursion_driver import (compress_composite,
+                                                       lift)
+
+    ids, root = own_control_ids()
+    t0 = time.perf_counter()
+    got = load_keccak_lift(14).control_id(dev)
+    same = got.tobytes().hex() == KECCAK_LIFT_14_ID
+    print(f"recursion: keccak_lift_14 control ID {got.tobytes().hex()} == "
+          f"official: {same}", flush=True)
+    if not same:
+        raise AssertionError("keccak_lift_14 control ID differs from the "
+                             "official digest")
+    for name in ("lift_rv32im_20", "join"):
+        same = np.array_equal(load_own_program(name).control_id(dev),
+                              ids[name])
+        print(f"recursion: {name} control ID == own_control_ids(): {same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"{name} control ID differs")
+    print(f"recursion: control IDs in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    log = _watch_recursion_proves()
+    ctx = VerifierContext(control_root=root)
+    rng = np.random.default_rng(7)
+    for fn in counters:
+        fn.launches = 0
+    sr = SegmentReceipt(seal=seal20, index=0, hashfn="poseidon2",
+                        claim=decode_claim(seal20))
+    lifted = lift(sr, device=dev, rng=rng)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    _print_recursion_prove("lift_rv32im_20", log[-1])
+    t0 = time.perf_counter()
+    lifted.verify_integrity(ctx)
+    verify_s = time.perf_counter() - t0
+    if not np.array_equal(lifted.claim.digest(), decode_claim(seal20).digest()):
+        raise AssertionError("lifted claim != the segment seal's claim")
+    bad = np.array(lifted.seal)
+    bad[len(bad) // 2] ^= 1
+    try:
+        dataclasses.replace(lifted, seal=bad).verify_integrity(ctx)
+    except VerificationError as e:
+        rejected = str(e)
+    else:
+        raise AssertionError("a corrupted succinct receipt was accepted")
+    print(f"recursion: lifted receipt verified in {verify_s:.2f} s, claim == "
+          f"decode_claim(seal); flipped word rejected ({rejected})",
+          flush=True)
+
+    t0 = time.perf_counter()
+    session = loop_guest.session(REC_SESSION_PO2, 2)
+    segs = session.segments
+    po2s = [s.po2 for s in segs]
+    print(f"recursion: executed a {len(segs)}-segment loop session at "
+          f"segment po2 {REC_SESSION_PO2}: segments of po2 {po2s} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if len(segs) != 2 or po2s[0] != REC_SESSION_PO2:
+        raise AssertionError(f"the session's segments are of po2 {po2s}")
+    receipts = []
+    for i, seg in enumerate(segs):
+        secs, seal = _wall_s(lambda: prove_segment(
+            seg, rand_z=loop_guest.RAND_Z, device=dev))
+        receipts.append(SegmentReceipt(seal=seal, index=i, hashfn="poseidon2",
+                                       claim=decode_claim(seal)))
+        print(f"recursion: segment {i} proved in {secs:.3f} s", flush=True)
+    before = {fn.__name__: fn.launches for fn in counters}
+    n = len(log)
+    secs, final = _wall_s(lambda: compress_composite(
+        CompositeReceipt(segments=receipts), device=dev, rng=rng))
+    for fn in counters:
+        launches[fn.__name__] += fn.launches - before[fn.__name__]
+    names = [f"lift_rv32im_{p} (segment {i})" for i, p in enumerate(po2s)]
+    for name, rec in zip(names + ["join"], log[n:]):
+        _print_recursion_prove(name, rec)
+    t0 = time.perf_counter()
+    final.verify_integrity(ctx)
+    want = session_claim(session).digest()
+    same = np.array_equal(final.claim.digest(), want)
+    print(f"recursion: compress_composite {secs:.3f} s ({len(log) - n} "
+          f"proves); final receipt verified in "
+          f"{time.perf_counter() - t0:.2f} s; claim == "
+          f"session_claim(session): {same}", flush=True)
+    if not same:
+        raise AssertionError("the final claim differs from the session's")
+    print(f"recursion: launches {json.dumps(launches)}", flush=True)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the recursion "
+                             f"proves: {missing}")
     return launches
 
 
@@ -392,7 +561,9 @@ def main() -> int:
     phase_witgen(dev, seg)
     counters = [kp2.hash_rows, kp2.hash_pairs, kntt.evaluate_ntt,
                 kntt.interpolate_ntt]
-    launches = phase_prove(dev, seg, counters)
+    launches, seal = phase_prove(dev, seg, counters)
+    del seg
+    launches_rec = phase_recursion(dev, seal, counters)
 
     meta = {
         "hash_rows": ("poseidon2.cu", "risc0_tpu/hal/pallas/poseidon2.py:121"),
@@ -403,7 +574,8 @@ def main() -> int:
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"risc0_tpu_torch/csrc/{src}", "replaces": replaces,
-        "launches": launches[name], "max_abs_err": rec[name]["max_abs_err"],
+        "launches": launches[name], "launches_recursion": launches_rec[name],
+        "max_abs_err": rec[name]["max_abs_err"],
         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
         "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],
         "library_ms": None,  # no PyTorch call computes these functions

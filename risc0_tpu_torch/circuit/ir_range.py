@@ -17,6 +17,7 @@ the TPU has no u64).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -555,3 +556,34 @@ def make_eval_check(plan: RangePlan, po2: int, chunk: int = 1 << 16):
         return out.view(domain, 4).T.contiguous()
 
     return run
+
+
+@lru_cache(maxsize=None)
+def _range_plan(circuit) -> RangePlan:
+    return build_range_plan(circuit)
+
+
+class RangePlanHal:
+    """A prover's eval_check through ``make_eval_check``, chunked over the
+    domain on the device of the evaluated groups (T = `chunk` rows).  The
+    IRs' tap buffers are 0 (accum), 1 (data) and, in the recursion
+    circuit, 4 (code); the result does not depend on the chunk."""
+
+    def __init__(self, circuit, chunk: int):
+        self.circuit = circuit
+        self.chunk = chunk
+        self.plan = _range_plan(circuit)
+        self._fns = {}
+
+    def eval_check(self, groups, globals_list, poly_mix, po2):
+        fn = self._fns.get(po2)
+        if fn is None:
+            fn = self._fns[po2] = make_eval_check(self.plan, po2,
+                                                  chunk=self.chunk)
+        mix_g, out_g = (np.asarray(g, np.uint32) for g in globals_list)
+        accum, code, data = groups
+        bufmap = {0: accum, 1: data, 4: code}
+        evs = tuple(bufmap[b] for b in plan_buf_ids(self.plan))
+        gvals = np.array([(out_g if b == 2 else mix_g)[i]
+                          for b, i in self.plan.global_specs], np.uint32)
+        return fn(evs, gvals, self.circuit.mix_pows(poly_mix))

@@ -16,8 +16,6 @@ device accum.  Everything else runs on `device`.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 
 from ... import field as F
@@ -39,35 +37,6 @@ from .witgen import REGCOUNT_MIX, witgen_accum, witgen_exec
 # 8229 x T x 4 B + 3018 x T x 16 B = 5.3 GB at T = 2^16, and 64 chunks
 # cover the po2 20 domain
 EVAL_CHUNK = 1 << 16
-
-
-class Rv32imCircuitHal:
-    """eval_check through the range-plan evaluator (circuit/ir_range.py),
-    chunked over the domain on the device of the evaluated groups."""
-
-    def __init__(self, circuit, chunk: int = EVAL_CHUNK):
-        self.circuit = circuit
-        self.chunk = chunk
-        self.plan = _range_plan(circuit)
-        self._fns = {}
-
-    def eval_check(self, groups, globals_list, poly_mix, po2):
-        fn = self._fns.get(po2)
-        if fn is None:
-            fn = self._fns[po2] = ir_range.make_eval_check(
-                self.plan, po2, chunk=self.chunk)
-        mix_g, out_g = (np.asarray(g, np.uint32) for g in globals_list)
-        accum, _code, data = groups
-        bufmap = {0: accum, 1: data}
-        evs = tuple(bufmap[b] for b in ir_range.plan_buf_ids(self.plan))
-        gvals = np.array([(out_g if b == 2 else mix_g)[i]
-                          for b, i in self.plan.global_specs], np.uint32)
-        return fn(evs, gvals, self.circuit.mix_pows(poly_mix))
-
-
-@lru_cache(maxsize=None)
-def _range_plan(circuit):
-    return ir_range.build_range_plan(circuit)
 
 
 def segment_preflight(seg, rand_z=None, rng=None, device=None,
@@ -152,5 +121,5 @@ def prove_segment_core(res, device="cuda", eval_chunk: int = EVAL_CHUNK,
     prover.commit_group(REGISTER_GROUP_ACCUM, accum_w,
                         encode=accum == "host")
 
-    hal_obj = Rv32imCircuitHal(circuit, chunk=eval_chunk)
+    hal_obj = ir_range.RangePlanHal(circuit, chunk=eval_chunk)
     return prover.finalize([mix_m, global_m], hal_obj)

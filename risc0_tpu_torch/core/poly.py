@@ -22,10 +22,10 @@ def ext_one():
 
 
 def poly_eval(coeffs, x):
-    """sum_i coeffs[i] x^i; coeffs (n, 4), x (4,)."""
-    tot = ext_zero()
-    cur = ext_one()
-    for c in np.asarray(coeffs, np.uint32):
-        tot = F.add_np(tot, F.ext_mul_np(c, cur))
-        cur = F.ext_mul_np(cur, x)
-    return tot
+    """sum_i coeffs[i] x^i; coeffs (n, 4), x (4,).  The powers of x are
+    built by doubling and the terms summed in uint64, reduced once."""
+    coeffs = np.asarray(coeffs, np.uint32).reshape(-1, 4)
+    if len(coeffs) == 0:
+        return ext_zero()
+    terms = F.ext_mul_np(coeffs, F.ext_powers_np(x, len(coeffs)))
+    return (terms.astype(np.uint64).sum(0) % F.P).astype(np.uint32)

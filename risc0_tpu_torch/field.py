@@ -118,17 +118,24 @@ def inv_np(a):
 
 
 def ext_mul_np(a, b):
-    a = np.asarray(a, _U32)
-    b = np.asarray(b, _U32)
+    """F_p4 product of Montgomery uint32 arrays (x^4 = -BETA), in uint64:
+    the raw sums carry R^2 and one R^-1 per output restores Montgomery
+    form (as ``ext_mul``); canonical words out."""
+    a = np.asarray(a, _U64)
+    b = np.asarray(b, _U64)
     a0, a1, a2, a3 = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
     b0, b1, b2, b3 = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
-    nbeta = encode_np(np.array(NBETA, _U32))
-    m, ad = mul_np, add_np
-    c0 = ad(m(a0, b0), m(nbeta, ad(ad(m(a1, b3), m(a2, b2)), m(a3, b1))))
-    c1 = ad(ad(m(a0, b1), m(a1, b0)), m(nbeta, ad(m(a2, b3), m(a3, b2))))
-    c2 = ad(ad(m(a0, b2), ad(m(a1, b1), m(a2, b0))), m(nbeta, m(a3, b3)))
-    c3 = ad(ad(m(a0, b3), m(a1, b2)), ad(m(a2, b1), m(a3, b0)))
-    return np.stack([c0, c1, c2, c3], axis=-1)
+    p, nb = _U64(P), _U64(NBETA)
+
+    def pm(x, y):
+        return x * y % p
+
+    c0 = pm(a0, b0) + nb * ((pm(a1, b3) + pm(a2, b2) + pm(a3, b1)) % p)
+    c1 = pm(a0, b1) + pm(a1, b0) + nb * ((pm(a2, b3) + pm(a3, b2)) % p)
+    c2 = pm(a0, b2) + pm(a1, b1) + pm(a2, b0) + nb * pm(a3, b3)
+    c3 = pm(a0, b3) + pm(a1, b2) + pm(a2, b1) + pm(a3, b0)
+    out = np.stack([c0 % p, c1 % p, c2 % p, c3 % p], axis=-1)
+    return (out * _U64(R_INV) % p).astype(_U32)
 
 
 def ext_inv_np(a):

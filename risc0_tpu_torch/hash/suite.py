@@ -1,7 +1,8 @@
 """The Poseidon2 hash suite and its Fiat-Shamir rng (host side; counterpart
 of the Poseidon2 half of ``risc0_tpu/hash/suite.py``).  Digests are numpy
 (8,) uint32 arrays.  The SHA-256, Poseidon254 and Blake2b suites are not
-ported yet."""
+ported yet: ``get_suite`` names them and raises, and never hands back
+another suite in their place."""
 
 from __future__ import annotations
 
@@ -67,3 +68,19 @@ class Poseidon2Suite:
 
 
 POSEIDON2 = Poseidon2Suite()
+
+
+# the reference's other suites; ROADMAP.md queue 1 ports them
+_NOT_PORTED = ("sha256", "sha-256", "poseidon254", "poseidon_254", "blake2b")
+
+
+def get_suite(name: str) -> Poseidon2Suite:
+    """The hash suite of a receipt's `hashfn`."""
+    if name == POSEIDON2.name:
+        return POSEIDON2
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"hash suite {name!r} is not ported to risc0_tpu_torch yet "
+            "(ROADMAP.md queue 1: the SHA-256, Poseidon254 and Blake2b "
+            "suites); only 'poseidon2' is")
+    raise ValueError(f"unknown hash suite {name!r}")

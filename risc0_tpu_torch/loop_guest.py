@@ -1,5 +1,6 @@
-"""The loop guest (``guests/loop.bin``) executed into one segment: the main
-path that ``chip_smoke.py`` and ``scripts/torch_prove_ab.py`` prove."""
+"""The loop guest (``guests/loop.bin``) executed into segments: the main
+path that ``chip_smoke.py`` and ``scripts/torch_prove_ab.py`` prove, and
+the sessions its recursion phase compresses."""
 
 from __future__ import annotations
 
@@ -14,16 +15,39 @@ ELF = os.path.join(ROOT, "guests", "loop.bin")
 RAND_Z = (1, 2, 3, 4)
 
 
+def _count(cycles: float) -> int:
+    """Loop count that runs about `cycles` guest cycles: about 2.02 cycles
+    an iteration plus about 13k fixed (bench.py:44-46)."""
+    return max(1, int((cycles - 13000) / 2.02))
+
+
 def count_for_po2(po2: int) -> int:
-    """Loop count that fills about 70% of a 2^po2 segment (bench.py:44-46):
-    about 2.02 cycles an iteration plus about 13k fixed."""
-    return max(1, int((0.70 * (1 << po2) - 13000) / 2.02))
+    """Loop count that fills about 70% of a 2^po2 segment."""
+    return _count(0.70 * (1 << po2))
+
+
+# cycles of a segment the guest cannot use: the executor reserves 25,000
+# and paging takes up to about 6,000 more (measured on this guest)
+_SEGMENT_OVERHEAD = 31_000
+
+
+def _run(po2: int, count: int):
+    with open(ELF, "rb") as f:
+        elf = f.read()
+    env = ExecutorEnv(segment_po2=po2).write_slice(count.to_bytes(4, "little"))
+    return ExecutorImpl(env, elf).run()
 
 
 def segment(po2: int):
     """Execute the loop guest at segment po2 `po2`; its first segment."""
-    with open(ELF, "rb") as f:
-        elf = f.read()
-    env = ExecutorEnv(segment_po2=po2).write_slice(
-        count_for_po2(po2).to_bytes(4, "little"))
-    return ExecutorImpl(env, elf).run().segments[0]
+    return _run(po2, count_for_po2(po2)).segments[0]
+
+
+def session(po2: int, segments: int):
+    """Execute the loop guest sized to split into `segments` segments of
+    po2 `po2`: 0.70 + 0.95 * (segments - 1) segments' worth of loop
+    iterations (the fill of scripts/record_succinct20.py), counted in the
+    cycles a segment leaves the guest, which at po2 16 are about half of
+    its 2^16."""
+    room = (1 << po2) - _SEGMENT_OVERHEAD
+    return _run(po2, _count((0.70 + 0.95 * (segments - 1)) * room))

@@ -1,0 +1,227 @@
+"""Receipts: segment, composite and succinct containers and their
+verification (counterpart of part of ``risc0_tpu/zkvm/receipt.py``;
+reference risc0/zkvm/src/receipt.rs and receipt/{segment,composite,
+succinct,merkle}.rs).
+
+Verification runs the port's host verifiers.  The Groth16 receipt and the
+keccak batcher's union-root claim wait for their slices (ROADMAP.md queue
+1): ``session_claim`` raises on a session with pending keccak requests
+instead of leaving them out.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from .claims import (Assumptions, ExitCode, MaybePruned, Output, ReceiptClaim,
+                     SystemState)
+
+
+class VerificationError(Exception):
+    pass
+
+
+@dataclass
+class VerifierContext:
+    """reference receipt.rs:888-1008, the parameters of the receipts
+    ported here.  `control_root` is the allowed-control-IDs Merkle root a
+    succinct receipt must include its control ID in (default: the
+    receipt's own); `inner_control_root` is the root the recursion program
+    must echo in its output (default: `control_root`), as in
+    receipt/succinct.rs:229-260."""
+
+    hashfn: str = "poseidon2"
+    control_root: np.ndarray | None = None
+    inner_control_root: np.ndarray | None = None
+
+
+def _check_hashfn(hashfn: str, ctx: VerifierContext):
+    if hashfn != ctx.hashfn:
+        raise VerificationError(
+            f"hashfn mismatch: seal {hashfn}, ctx {ctx.hashfn}")
+
+
+@dataclass
+class SegmentReceipt:
+    """STARK proof of one segment (reference receipt/segment.rs)."""
+
+    seal: np.ndarray
+    index: int
+    hashfn: str
+    claim: ReceiptClaim
+
+    def verify_integrity(self, ctx: VerifierContext):
+        """Run the rv32im STARK verifier over the seal, then check that the
+        claim decoded from the seal's globals is this receipt's claim."""
+        from ..circuit.rv32im.claim import decode_claim
+        from ..circuit.rv32im.verify import verify_rv32im_seal
+        from ..verify.verifier import VerificationError as ZkpError
+
+        _check_hashfn(self.hashfn, ctx)
+        try:
+            verify_rv32im_seal(self.seal)
+        except ZkpError as e:
+            raise VerificationError(f"rv32im seal invalid: {e}") from e
+        if not np.array_equal(decode_claim(self.seal).digest(),
+                              self.claim.digest()):
+            raise VerificationError(
+                "seal-decoded claim does not match receipt claim")
+
+
+@dataclass
+class CompositeReceipt:
+    """Chain of segment receipts + assumption receipts
+    (reference receipt/composite.rs)."""
+
+    segments: list
+    assumption_receipts: list = field(default_factory=list)
+
+    def claim(self) -> ReceiptClaim:
+        first = self.segments[0].claim
+        last = self.segments[-1].claim
+        # Remove the assumptions from the last claim: verification requires
+        # every assumption to carry a verifiable receipt (reference
+        # receipt/composite.rs:161-194).
+        output = last.output
+        if output is not None and output.value is not None:
+            output = MaybePruned.of(Output(
+                output.value.journal, MaybePruned.of(Assumptions([]))))
+        return ReceiptClaim(
+            pre=first.pre, post=last.post, exit_code=last.exit_code,
+            input=first.input, output=output)
+
+    def verify_integrity(self, ctx: VerifierContext):
+        # claim chaining: each segment's post state must equal the next pre
+        for a, b in zip(self.segments, self.segments[1:]):
+            if not np.array_equal(a.claim.post.digest(), b.claim.pre.digest()):
+                raise VerificationError("segment claims do not chain")
+            if a.claim.exit_code.kind != "SystemSplit":
+                raise VerificationError("non-final segment must SystemSplit")
+        for seg in self.segments:
+            seg.verify_integrity(ctx)
+        for ar in self.assumption_receipts:
+            ar.verify_integrity(ctx)
+
+
+def verify_control_inclusion(proof, control_id, root, suite) -> bool:
+    """Check a MerkleProof {index, digests} roots `control_id` into `root`
+    (reference zkvm/src/receipt/merkle.rs:73-103)."""
+    cur = np.asarray(control_id, np.uint32)
+    idx = int(proof["index"])
+    for sib in proof["digests"]:
+        sib = np.asarray(sib, np.uint32)
+        cur = suite.hash_pair(sib, cur) if idx & 1 else suite.hash_pair(cur, sib)
+        idx >>= 1
+    return idx == 0 and np.array_equal(cur, np.asarray(root, np.uint32))
+
+
+@dataclass
+class SuccinctReceipt:
+    """Recursion-compressed receipt (reference receipt/succinct.rs:37-88).
+
+    `claim` may be a ReceiptClaim or a MaybePruned digest; only its digest
+    is checked against the seal output.  `control_inclusion_proof` is the
+    Merkle path of `control_id` into the allowed-control-IDs set root."""
+
+    seal: np.ndarray
+    control_id: np.ndarray
+    claim: object
+    control_root: np.ndarray
+    control_inclusion_proof: dict
+    hashfn: str = "poseidon2"
+
+    def verify_integrity(self, ctx: VerifierContext):
+        """reference receipt/succinct.rs:103-190: decode the output globals
+        ([0:16] the Poseidon2 control root at even slots, [16:32] the claim
+        digest as SHA halfs) and check them, then verify the recursion-
+        circuit STARK, which binds those globals, with the control-ID
+        inclusion check as check_code.  The receipt is accepted only if
+        every check passes; the cheap ones run first."""
+        from .. import field as F
+        from ..circuit.recursion.circuit import verify_recursion_seal
+        from ..circuit.recursion.prove import read_sha_halfs
+        from ..hash.suite import get_suite
+        from ..verify.verifier import VerificationError as ZkpError
+
+        _check_hashfn(self.hashfn, ctx)
+        suite = get_suite(self.hashfn)
+        params_root = (ctx.control_root if ctx.control_root is not None
+                       else self.control_root)
+
+        out = F.decode_np(np.asarray(self.seal[:32], np.uint32))
+        expect_inner = (ctx.inner_control_root
+                        if ctx.inner_control_root is not None else params_root)
+        if not np.array_equal(np.asarray(out[0:16:2], np.uint32),
+                              np.asarray(expect_inner, np.uint32)):
+            raise VerificationError(
+                "seal output control root does not match expected "
+                "inner control root")
+        if not np.array_equal(read_sha_halfs(out[16:32]),
+                              self.claim.digest()):
+            raise VerificationError(
+                "seal output claim digest does not match receipt claim")
+
+        def check_code(_po2, code_root):
+            if not np.array_equal(np.asarray(code_root, np.uint32),
+                                  np.asarray(self.control_id, np.uint32)):
+                raise ZkpError("seal code root != receipt control_id")
+            if not verify_control_inclusion(
+                    self.control_inclusion_proof, self.control_id,
+                    params_root, suite):
+                raise ZkpError("control-ID inclusion proof invalid")
+
+        try:
+            verify_recursion_seal(self.seal, check_code)
+        except ZkpError as e:
+            raise VerificationError(f"recursion seal invalid: {e}") from e
+
+
+def session_claim(session) -> ReceiptClaim:
+    """The ReceiptClaim this session's final receipt proves (reference
+    host/server/session.rs:199-256 Session::claim).  Its output lists only
+    the assumptions without a receipt: proven ones are resolved during
+    compression.  A session with pending keccak requests raises: the
+    keccak batcher's union-root claim is not ported yet."""
+    if getattr(session, "pending_keccaks", None):
+        raise NotImplementedError(
+            f"session has {len(session.pending_keccaks)} pending keccak "
+            "requests: their union-root claim (keccak_root_claim) is not "
+            "ported to risc0_tpu_torch yet (ROADMAP.md queue 1)")
+    kind, *rest = session.exit_code
+    exit_code = ExitCode(kind, rest[0] if rest else 0)
+    output = None
+    if exit_code.is_term:
+        unresolved = [MaybePruned.of(a)
+                      for a, receipt in session.assumptions_used
+                      if receipt is None]
+        output = MaybePruned.of(Output.of(session.journal,
+                                          Assumptions(unresolved)))
+    return ReceiptClaim(
+        pre=MaybePruned.of(SystemState(0, session.pre_state)),
+        post=MaybePruned.of(SystemState(0, session.post_state)),
+        exit_code=exit_code,
+        input=MaybePruned.from_digest(session.input_digest),
+        output=output,
+    )
+
+
+def segment_claim(seg, final: bool, session_exit: ExitCode,
+                  output: MaybePruned | None) -> ReceiptClaim:
+    """ReceiptClaim for one segment of a session."""
+    from .exec import resolve_segment
+
+    seg = resolve_segment(seg)  # FileSegmentRef -> SegmentInfo
+    exit_code = session_exit if final else ExitCode("SystemSplit")
+    # Halted segments have a zeroed post state root in the decoded claim
+    # (reference claim/receipt.rs:168-171).
+    post_digest = (np.zeros(8, np.uint32) if exit_code.kind == "Halted"
+                   else seg.post_digest)
+    return ReceiptClaim(
+        pre=MaybePruned.of(SystemState(0, seg.pre_digest)),
+        post=MaybePruned.of(SystemState(0, post_digest)),
+        exit_code=exit_code,
+        input=MaybePruned.from_digest(seg.input_digest),
+        output=output if final else None,
+    )

@@ -1,6 +1,7 @@
 """Card-only checks of the CUDA kernels of risc0_tpu_torch against their
-plain torch versions, on the same CUDA inputs, and of the device witgens
-and the rv32im prove on the card against their CPU and host runs.  Field
+plain torch versions, on the same CUDA inputs (the recursion prove's
+shapes too), of the device witgens and the rv32im prove on the card
+against their CPU and host runs, and of a lift on the card.  Field
 arithmetic is exact, so every comparison is bit for bit.
 
 These skip where torch sees no CUDA device.  This file imports no jax, so
@@ -227,3 +228,38 @@ def test_device_accum_prove_gives_the_host_accum_seal(dev, loop_segment):
     assert np.array_equal(seals[0], seals[1])
     assert np.array_equal(seals[0], seals[2])
     assert len(verify_rv32im_seal(seals[0])) == 90
+
+
+# the recursion prove's groups: 12 accum, 23 code and 128 data columns at
+# 2^18 rows (batches that are no multiple of 4), their 4x LDE, its leaves
+# and a tree of 2^20 leaves
+@pytest.mark.parametrize("cols", [12, 23, 128])
+def test_recursion_shapes(dev, cols):
+    w = _words(np.random.default_rng(cols), (cols, 1 << 18), dev)
+    assert torch.equal(kntt.interpolate_ntt(w), kntt.interpolate_ntt_plain(w))
+    x = ntt_mod.expand(w, 2).contiguous()
+    ev = kntt.evaluate_ntt(x, 2)
+    assert torch.equal(ev, kntt.evaluate_ntt_plain(x, 2))
+    leaves = kp2.hash_rows(ev)
+    assert torch.equal(leaves, kp2.hash_rows_plain(ev))
+    for got, want in zip(kp2.merkle_fold(leaves),
+                         kp2.merkle_fold_plain(leaves)):
+        assert torch.equal(got, want)
+
+
+def test_lift_on_the_card(dev):
+    import os
+
+    from risc0_tpu_torch.circuit.recursion.predicates import own_control_ids
+    from risc0_tpu_torch.circuit.rv32im.claim import decode_claim
+    from risc0_tpu_torch.zkvm.receipt import SegmentReceipt, VerifierContext
+    from risc0_tpu_torch.zkvm.recursion_driver import lift
+
+    seal = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "data", "rv32im_seal_po2_14.npy"))
+    sr = SegmentReceipt(seal=seal, index=0, hashfn="poseidon2",
+                        claim=decode_claim(seal))
+    receipt = lift(sr, device=dev, rng=np.random.default_rng(1))
+    _ids, root = own_control_ids()
+    receipt.verify_integrity(VerifierContext(control_root=root))
+    assert np.array_equal(receipt.claim.digest(), decode_claim(seal).digest())

@@ -52,6 +52,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert "risc0_tpu_torch.zkvm.exec" in out["imported"]
     assert "risc0_tpu_torch.circuit.rv32im.accum_device" in out["imported"]
     assert "risc0_tpu_torch.circuit.rv32im.exec_device" in out["imported"]
+    for name in ("circuit.layout", "circuit.rv32im.claim",
+                 "circuit.recursion.circuit", "circuit.recursion.preflight",
+                 "circuit.recursion.prove", "circuit.recursion.predicates",
+                 "zkvm.receipt", "zkvm.recursion_driver"):
+        assert "risc0_tpu_torch." + name in out["imported"]
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
 
@@ -82,6 +87,13 @@ _ENTRY_POINTS = {
         "hal.commit_pipeline_chunked(np.zeros((1, 8), np.uint32))",
     "witgen_accum_device": "accum_device.witgen_accum_device(None, None)",
     "witgen_exec_device": "exec_device.witgen_exec_device(None)",
+    "prove_program": "rec.prove_program(None, [])",
+    "Program.control_id": "rec.load_keccak_lift(14).control_id()",
+    "lift": "drv.lift(SegmentReceipt(np.zeros(100, np.uint32), 0, "
+            "'poseidon2', None))",
+    "compress_composite": "drv.compress_composite(CompositeReceipt("
+                          "[SegmentReceipt(np.zeros(100, np.uint32), 0, "
+                          "'poseidon2', None)]))",
 }
 
 _CALL_ALL = """
@@ -90,10 +102,13 @@ import numpy as np
 import torch
 from risc0_tpu_torch.circuit import fib
 from risc0_tpu_torch.circuit.rv32im import accum_device, exec_device
+from risc0_tpu_torch.circuit.recursion import prove as rec
 from risc0_tpu_torch.circuit.rv32im import prove as rv
 from risc0_tpu_torch.hal import torch_hal as hal
 from risc0_tpu_torch.hash.suite import POSEIDON2
 from risc0_tpu_torch.prove.prover import Prover
+from risc0_tpu_torch.zkvm import recursion_driver as drv
+from risc0_tpu_torch.zkvm.receipt import CompositeReceipt, SegmentReceipt
 assert not torch.cuda.is_available()
 out = {}
 for name, call in json.loads(%r).items():
