@@ -42,12 +42,31 @@ non-zero:
                recursion prove: wall time, seal words and SHA-256, the
                stage table and peak device memory; each kernel's launch
                count over the lift and the compress (every count > 0)
+  8. composition - the user's path: ProverImpl(succinct).prove of a guest
+               (keccak_guest.py) that permutes a keccak state 655 times
+               (a full batch at po2 17) and 3 more, flushing a batch
+               after each run, assumes the union root of the two batch
+               claims (sys_verify_integrity2) and halts with a journal:
+               two keccak proves at po2 17, each verified on the host and
+               lifted with keccak_lift_17, their union, the po2 17
+               segment's prove and lift, and the resolve.  Per prove:
+               wall time, stage table, peak device memory, seal words and
+               SHA-256.  The receipt must pass Receipt.verify(image_id)
+               with the session's claim and no assumption left, the union
+               root's claim must be the guest's, and a flipped seal word
+               must be rejected; each kernel's launch count over the
+               prove (every count > 0).  Then the po2 14 keccak seal of
+               the golden keccak lift's inputs, which must equal the JAX
+               package's (tests/data/keccak_seal_po2_14.npy)
 
 Phase 3 also holds the kernels at the recursion prove's shapes (12, 23
 and 128 columns at 2^18 rows, the check group, trees of 2^20 leaves, its
-FRI rounds).  The last two lines are a JSON object {"kernels": [...]}
-(launches: phase 6's prove; launches_recursion: phase 7's) and
-{"ok": true, "device": {...}}.  Imports nothing of jax.
+FRI rounds) and at the keccak prove's (1096 columns at 2^17 rows and at
+2^19 for the leaves, the commit's chunks of 32 and 8 columns, a tree of
+2^19 leaves).  The last two lines are a JSON object {"kernels": [...]}
+(launches: phase 6's prove; launches_recursion: phase 7's;
+launches_composition: phase 8's) and {"ok": true, "device": {...}}.
+Imports nothing of jax.
 """
 
 import dataclasses
@@ -143,13 +162,15 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
     # hash_rows at every shape of the prove: data, accum, check and code
     # groups, the FRI rounds, the final FRI digest (prove/fri.py); then the
     # recursion prove's: data, code, accum and check groups, FRI rounds and
-    # final digest
+    # final digest; then the keccak prove's data (68 full blocks of 16 and
+    # 8 words a row), check and code/accum groups
     n22 = 1 << 22
     big = _words(rng, (211, n22), dev)
     for cols, bits in ((211, 22), (103, 22), (16, 22), (1, 22), (64, 18),
                        (64, 14), (64, 10), (1024, 0),
                        (128, 20), (23, 20), (12, 20), (16, 20), (64, 16),
-                       (64, 12), (64, 8), (256, 0)):
+                       (64, 12), (64, 8), (256, 0),
+                       (1096, 19), (16, 19), (1, 19)):
         m = big[:cols] if bits == 22 else _words(rng, (cols, 1 << bits), dev)
         perms = (1 << bits) * max(1, -(-cols // 16))
         compare("hash_rows", f"({cols}, 2^{bits})", lambda: kp2.hash_rows(m),
@@ -158,10 +179,10 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
                 TIMED_REPS if bits >= 18 else 20)
         del m
     del big
-    # the Merkle fold above the leaves of each tree of the prove and of the
-    # recursion prove: 2^n - 1 compressions, the leaves read once and every
-    # layer written once
-    for bits in (22, 18, 14, 10, 20, 16, 12, 8):
+    # the Merkle fold above the leaves of each tree of the prove, of the
+    # recursion prove and of the keccak prove (2^19 leaves): 2^n - 1
+    # compressions, the leaves read once and every layer written once
+    for bits in (22, 18, 14, 10, 20, 16, 12, 8, 19):
         leaves = _words(rng, (1 << bits, 8), dev)
         compare("hash_pairs", f"fold 2^{bits} leaves",
                 lambda: kp2.merkle_fold(leaves),
@@ -198,12 +219,15 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
 
     # evaluate: the commit LDEs (data chunks of 32, accum 103, one data
     # group at once), 2^23 and 2^24, and an expand at or above k1; then the
-    # recursion prove's LDEs (data, code, accum, check) and FRI rounds
+    # recursion prove's LDEs (data, code, accum, check) and FRI rounds; then
+    # the keccak prove's: its data group at once, the chunks of 32 and 8
+    # columns its commit runs, the check group, and code/accum
     k1_22 = kntt.split(22)[0]
     cases = [(211, 20, 2), (32, 20, 2), (103, 20, 2), (2, 21, 2), (2, 22, 2),
              (2, 22 - k1_22 - 1, k1_22 + 1),
              (128, 18, 2), (23, 18, 2), (12, 18, 2), (16, 18, 2),
-             (4, 18, 2), (4, 14, 2), (4, 10, 2)]
+             (4, 18, 2), (4, 14, 2), (4, 10, 2),
+             (1096, 17, 2), (32, 17, 2), (8, 17, 2), (16, 17, 2), (1, 17, 2)]
     for rows, c_bits, eb in cases:
         c = _words(rng, (rows, 1 << c_bits), dev)
         x = ntt_mod.expand(c, eb)
@@ -216,9 +240,12 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
                 _ntt_bound(rows, n_bits, n_bits - eb, False))
         del x
     # interpolate: the commit iNTTs, the check poly, 2^23 and 2^24; then
-    # the recursion prove's commits and check poly
+    # the recursion prove's commits and check poly; then the keccak
+    # prove's: its data group at once, its chunks of 32 and 8 columns, the
+    # check poly, and code/accum
     for rows, n_bits in ((211, 20), (32, 20), (103, 20), (4, 22), (2, 23),
-                         (2, 24), (128, 18), (23, 18), (12, 18), (4, 20)):
+                         (2, 24), (128, 18), (23, 18), (12, 18), (4, 20),
+                         (1096, 17), (32, 17), (8, 17), (4, 19), (1, 17)):
         x = _words(rng, (rows, 1 << n_bits), dev)
         compare("interpolate_ntt", f"({rows}, 2^{n_bits})",
                 lambda: kntt.interpolate_ntt(x),
@@ -388,30 +415,30 @@ REC_STAGES = ("rec_preflight", "rec_witgen", "commit_group.1",
               "check_commit", "tap_eval", "combos", "fri_prove")
 
 
-def _watch_recursion_proves():
-    """Record each recursion prove of the phase: its wall time (ended by a
-    device sync), seal, stage table and peak device memory.  A shim around
-    prove_program that only observes; returns the list it fills."""
+def _watch(module, name, log, counters=()):
+    """Record each call of module.name (a shim that only observes): its
+    wall time (ended by a device sync), stage table, peak device memory,
+    the launches of each of `counters` and the result."""
     from risc0_tpu_torch import perf
-    from risc0_tpu_torch.circuit.recursion import prove as rprove
 
-    log = []
-    inner = rprove.prove_program
+    inner = getattr(module, name)
 
-    def timed(program, input_words, **kw):
+    def timed(*args, **kw):
         perf.reset()
         torch.cuda.reset_peak_memory_stats()
-        secs, (seal, out) = _wall_s(lambda: inner(program, input_words, **kw))
-        log.append({"s": secs, "seal": seal, "stages": perf.report(),
-                    "peak": torch.cuda.max_memory_allocated()})
-        return seal, out
+        before = [fn.launches for fn in counters]
+        secs, out = _wall_s(lambda: inner(*args, **kw))
+        log.append({"s": secs, "out": out, "stages": perf.report(),
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "launches": {fn.__name__: fn.launches - b
+                                 for fn, b in zip(counters, before)}})
+        return out
 
-    rprove.prove_program = timed
-    return log
+    setattr(module, name, timed)
 
 
 def _print_recursion_prove(name, rec):
-    seal = np.asarray(rec["seal"], np.uint32)
+    seal = np.asarray(rec["out"][0], np.uint32)
     print(f"recursion {name}: {rec['s']:.3f} s, seal {len(seal)} words, "
           f"SHA-256 {hashlib.sha256(seal.tobytes()).hexdigest()}, peak "
           f"device memory {rec['peak'] / 2**30:.2f} GiB; stages (s, calls): "
@@ -419,10 +446,11 @@ def _print_recursion_prove(name, rec):
                       for k in REC_STAGES if k in rec["stages"]), flush=True)
 
 
-def phase_recursion(dev, seal20, counters):
+def phase_recursion(dev, seal20, counters, log):
     """Control IDs on the card; lift the po2 20 seal; compress a
-    two-segment session.  Returns {kernel: launches over the lift and the
-    compress}."""
+    two-segment session.  `log` fills with each recursion prove
+    (a _watch log of prove_program).  Returns {kernel: launches over the lift
+    and the compress}."""
     from risc0_tpu_torch import loop_guest
     from risc0_tpu_torch.circuit.recursion.predicates import (
         load_own_program, own_control_ids)
@@ -455,7 +483,6 @@ def phase_recursion(dev, seal20, counters):
     print(f"recursion: control IDs in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    log = _watch_recursion_proves()
     ctx = VerifierContext(control_root=root)
     rng = np.random.default_rng(7)
     for fn in counters:
@@ -524,6 +551,154 @@ def phase_recursion(dev, seal20, counters):
                              f"proves: {missing}")
     return launches
 
+KECCAK_BATCHES = (655, 3)  # the first batch full: (1 << 17) // 200 states
+
+
+def _fixture_keccak_inputs():
+    """The keccak states of the golden keccak lift's fixture
+    (scripts/gen_keccak_seal.py inputs())."""
+    rng = np.random.default_rng(14)
+    return [[int(x) for x in rng.integers(0, 1 << 64, 25, dtype=np.uint64)]
+            for _ in range(2)]
+
+
+def _stage_line(stages):
+    """The top-level scopes and the group commits, in the order run."""
+    return ", ".join(f"{k} {secs:.3f} x{calls}"
+                     for k, (calls, secs) in stages.items()
+                     if "." not in k or k.startswith("commit_group."))
+
+
+def phase_composition(dev, counters, rec_log):
+    """The keccak coprocessor and receipt composition through the user's
+    entry point: ProverImpl(succinct).prove of a guest that flushes two
+    keccak batches at po2 17 and assumes their union root.  Returns
+    {kernel: launches over the prove}."""
+    from risc0_tpu_torch import keccak_guest
+    from risc0_tpu_torch.circuit.keccak import KECCAK_DEFAULT_PO2
+    from risc0_tpu_torch.circuit.keccak import prove as kprove
+    from risc0_tpu_torch.circuit.keccak import verify as kverify
+    from risc0_tpu_torch.circuit.recursion.predicates import own_control_ids
+    from risc0_tpu_torch.circuit.rv32im import prove as rv_prove
+    from risc0_tpu_torch.zkvm import recursion_driver as drv
+    from risc0_tpu_torch.zkvm.exec import ExecutorEnv, ExecutorImpl
+    from risc0_tpu_torch.zkvm.prover import ProverImpl, ProverOpts
+    from risc0_tpu_torch.zkvm.receipt import (VerificationError,
+                                              VerifierContext,
+                                              keccak_root_claim,
+                                              session_claim)
+
+    t0 = time.perf_counter()
+    elf, inputs, root_claim = keccak_guest.build(KECCAK_BATCHES)
+    env = ExecutorEnv(keccak_max_po2=KECCAK_DEFAULT_PO2)
+    image_id = ExecutorImpl(env, elf).compute_image_id()
+    print(f"composition: built the keccak guest ({KECCAK_BATCHES[0]} + "
+          f"{KECCAK_BATCHES[1]} permutations in two batches at po2 "
+          f"{KECCAK_DEFAULT_PO2}, root claim computed on the host) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    keccak_log, verify_log, seg_log, union_log = [], [], [], []
+    _watch(kprove, "prove_keccak", keccak_log, counters)
+    _watch(kverify, "verify_keccak_seal", verify_log)
+    _watch(rv_prove, "segment_preflight", seg_log)
+    _watch(rv_prove, "prove_segment_core", seg_log)
+    _watch(drv, "keccak_union_root", union_log)
+    n_rec = len(rec_log)
+
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    secs, info = _wall_s(lambda: ProverImpl(
+        ProverOpts(receipt_kind="succinct"), device=dev).prove(env, elf))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    # each watched call resets the peak: the prove's is the largest
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [r["peak"] for r in keccak_log + seg_log + rec_log[n_rec:]])
+    session = info.session
+    print(f"composition: ProverImpl(succinct).prove {secs:.3f} s (the "
+          f"executor, {len(keccak_log)} keccak proves, 1 segment of po2 "
+          f"{session.segments[0].po2}, {len(rec_log) - n_rec} recursion "
+          f"proves and the self-check), peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    for i, rec in enumerate(keccak_log):
+        seal = np.asarray(rec["out"], np.uint32)
+        print(f"composition: keccak batch {i} ({len(inputs[i])} states) "
+              f"proved at po2 {int(seal[17])} in {rec['s']:.3f} s, seal "
+              f"{len(seal)} words, SHA-256 "
+              f"{hashlib.sha256(seal.tobytes()).hexdigest()}, peak device "
+              f"memory {rec['peak'] / 2**30:.2f} GiB, launches "
+              f"{json.dumps(rec['launches'])}; stages (s, calls): "
+              f"{_stage_line(rec['stages'])}", flush=True)
+    for i, rec in enumerate(verify_log):
+        print(f"composition: keccak seal {i} verified on the host in "
+              f"{rec['s']:.3f} s", flush=True)
+    pre, core = seg_log
+    seal = np.asarray(core["out"], np.uint32)
+    print(f"composition: segment of po2 {session.segments[0].po2}: "
+          f"segment_preflight {pre['s']:.3f} s ({_stage_line(pre['stages'])})"
+          f", prove_segment_core {core['s']:.3f} s, seal {len(seal)} words, "
+          f"SHA-256 {hashlib.sha256(seal.tobytes()).hexdigest()}, peak "
+          f"device memory {core['peak'] / 2**30:.2f} GiB; stages (s, "
+          f"calls): {_stage_line(core['stages'])}", flush=True)
+    names = ([f"keccak_lift_{KECCAK_DEFAULT_PO2} (batch {i})"
+              for i in range(len(keccak_log))] + ["union"]
+             + [f"lift_rv32im_{session.segments[0].po2}", "resolve"])
+    for name, rec in zip(names, rec_log[n_rec:]):
+        _print_recursion_prove(name, rec)
+    if len(rec_log) - n_rec != len(names):
+        raise AssertionError(f"{len(rec_log) - n_rec} recursion proves, "
+                             f"expected {len(names)}")
+
+    succinct = info.receipt.inner.value
+    t0 = time.perf_counter()
+    info.receipt.verify(image_id)
+    verify_s = time.perf_counter() - t0
+    claim = session_claim(session)
+    same = np.array_equal(info.receipt.claim().digest(), claim.digest())
+    left = claim.output.value.assumptions.value.items
+    print(f"composition: receipt.verify(image_id) passed in {verify_s:.2f} "
+          f"s; claim == session_claim(session): {same}; assumptions left "
+          f"in the session claim: {len(left)}", flush=True)
+    if not same or left:
+        raise AssertionError("the receipt's claim is not the session's")
+    union_root = union_log[0]["out"]
+    root = drv.receipt_claim_digest(union_root)
+    same = (np.array_equal(root, keccak_root_claim(session.pending_keccaks))
+            and np.array_equal(root, root_claim))
+    print(f"composition: union root claim == keccak_root_claim == the "
+          f"guest's assumption: {same}", flush=True)
+    if not same:
+        raise AssertionError("the union root's claim is not the guest's")
+    bad = np.array(succinct.seal)
+    bad[len(bad) // 2] ^= 1
+    try:
+        dataclasses.replace(succinct, seal=bad).verify_integrity(
+            VerifierContext(control_root=own_control_ids()[1]))
+    except VerificationError as e:
+        rejected = str(e)
+    else:
+        raise AssertionError("a corrupted succinct receipt was accepted")
+    print(f"composition: flipped seal word rejected ({rejected})",
+          flush=True)
+    print(f"composition: launches {json.dumps(launches)}", flush=True)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the composition: "
+                             f"{missing}")
+
+    want = np.load(os.path.join(ROOT, "tests", "data",
+                                "keccak_seal_po2_14.npy"))
+    secs, got = _wall_s(lambda: kprove.prove_keccak(
+        _fixture_keccak_inputs(), 14, device=dev))
+    same = np.array_equal(got, want)
+    print(f"composition: po2 14 keccak seal == JAX seal "
+          f"(tests/data/keccak_seal_po2_14.npy): {same} ({secs:.3f} s)",
+          flush=True)
+    if not same:
+        raise AssertionError("the po2 14 keccak seal differs from the JAX "
+                             "seal")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -563,7 +738,11 @@ def main() -> int:
                 kntt.interpolate_ntt]
     launches, seal = phase_prove(dev, seg, counters)
     del seg
-    launches_rec = phase_recursion(dev, seal, counters)
+    from risc0_tpu_torch.circuit.recursion import prove as rprove
+    rec_log = []
+    _watch(rprove, "prove_program", rec_log)
+    launches_rec = phase_recursion(dev, seal, counters, rec_log)
+    launches_comp = phase_composition(dev, counters, rec_log)
 
     meta = {
         "hash_rows": ("poseidon2.cu", "risc0_tpu/hal/pallas/poseidon2.py:121"),
@@ -575,6 +754,7 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": f"risc0_tpu_torch/csrc/{src}", "replaces": replaces,
         "launches": launches[name], "launches_recursion": launches_rec[name],
+        "launches_composition": launches_comp[name],
         "max_abs_err": rec[name]["max_abs_err"],
         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
         "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],

@@ -29,10 +29,9 @@ from ...hash.suite import POSEIDON2
 from ...prove.prover import PolyGroup, Prover
 from ...taps import (REGISTER_GROUP_ACCUM, REGISTER_GROUP_CODE,
                      REGISTER_GROUP_DATA)
-from ...verify import verifier as V
 from ...zkvm import native
 from ..ir_range import RangePlanHal
-from ..rv32im.prove import _info_digest
+from ..rv32im.prove import open_seal
 from .circuit import RECURSION_PO2, load_prover_circuit
 from .preflight import RecursionPreflight
 
@@ -235,20 +234,14 @@ def prove_program(program: Program, input_words, rng=None, device="cuda",
     global_m = F.encode_np(res["global"])
 
     prover = Prover(suite, circuit.taps, device)
-    iop = prover.iop
-    iop.commit(_info_digest(suite, V.PROOF_SYSTEM_INFO))
-    iop.commit(_info_digest(suite, circuit.CIRCUIT_INFO))
-    header = np.concatenate([global_m, np.array([program.po2], np.uint32)])
-    iop.commit(suite.hash_elem_slice(header))
-    iop.write_field_elems(header)
-    prover.set_po2(program.po2)
+    open_seal(prover, suite, circuit.CIRCUIT_INFO, global_m, program.po2)
 
     # code words may exceed int32 range: they encode on the host
     prover.commit_group(REGISTER_GROUP_CODE, F.encode_np(res["ctrl"]))
     prover.commit_group(REGISTER_GROUP_DATA, res["data"], encode=True)
 
-    mix_m = np.array([iop.random_elem() for _ in range(circuit.MIX_SIZE)],
-                     np.uint32)
+    mix_m = np.array([prover.iop.random_elem()
+                      for _ in range(circuit.MIX_SIZE)], np.uint32)
     accum = accum_recursion(res, F.decode_np(mix_m), rng=rng)
     prover.commit_group(REGISTER_GROUP_ACCUM, accum, encode=True)
 

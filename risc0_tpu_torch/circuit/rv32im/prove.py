@@ -39,11 +39,13 @@ from .witgen import REGCOUNT_MIX, witgen_accum, witgen_exec
 EVAL_CHUNK = 1 << 16
 
 
-def segment_preflight(seg, rand_z=None, rng=None, device=None,
+def segment_preflight(seg, rand_z=None, rng=None, device="cuda",
                       exec: str = "host"):
     """First half of segment proving: preflight re-execution + exec witness
     generation (reference ProverServer::segment_preflight), by the host C++
-    (exec="host") or on `device` (exec="device")."""
+    (exec="host") or on `device` (exec="device"), the card unless the
+    caller names another."""
+    device = card(device)
     if exec not in ("host", "device"):
         raise ValueError(f"exec={exec!r}: 'host' or 'device'")
     rng = rng or np.random.default_rng()
@@ -73,6 +75,19 @@ def _info_digest(suite, info: bytes):
     return suite.hash_elem_slice(F.encode_np(words.astype(np.uint32)))
 
 
+def open_seal(prover, suite, circuit_info: bytes, global_m, po2: int):
+    """The seal's opening after any version word (reference prove_core):
+    the proof-system and circuit info commits, then the globals||po2
+    header, committed and written; sets the prover's po2."""
+    iop = prover.iop
+    iop.commit(_info_digest(suite, V.PROOF_SYSTEM_INFO))
+    iop.commit(_info_digest(suite, circuit_info))
+    header = np.concatenate([global_m, np.array([po2], np.uint32)])
+    iop.commit(suite.hash_elem_slice(header))
+    iop.write_field_elems(header)
+    prover.set_po2(po2)
+
+
 def prove_segment_core(res, device="cuda", eval_chunk: int = EVAL_CHUNK,
                        accum: str = "device"):
     """Device half of segment proving over a preflight/witgen result
@@ -98,13 +113,7 @@ def prove_segment_core(res, device="cuda", eval_chunk: int = EVAL_CHUNK,
     prover = Prover(suite, circuit.taps, device)
     iop = prover.iop
     iop.write_u32s([RV32IM_SEAL_VERSION])
-    iop.commit(_info_digest(suite, V.PROOF_SYSTEM_INFO))
-    iop.commit(_info_digest(suite, circuit.CIRCUIT_INFO))
-
-    header = np.concatenate([global_m, np.array([po2], np.uint32)])
-    iop.commit(suite.hash_elem_slice(header))
-    iop.write_field_elems(header)
-    prover.set_po2(po2)
+    open_seal(prover, suite, circuit.CIRCUIT_INFO, global_m, po2)
 
     prover.commit_group(REGISTER_GROUP_CODE, code_m)
     prover.commit_group(REGISTER_GROUP_DATA, res["data"], encode=True)

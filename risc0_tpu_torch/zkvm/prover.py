@@ -1,0 +1,192 @@
+"""Prover servers: options, and the local prover on the card (counterpart
+of ``risc0_tpu/zkvm/prover.py``; reference risc0/zkvm/src/host/server/
+prove/{mod,prover_impl,opts}.rs).
+
+``ProverImpl`` executes a guest, proves every segment with the rv32im
+STARK prover, chains the claims into a CompositeReceipt and, for the
+succinct kind, compresses it: lifts, joins, and resolves the assumption
+receipts, the keccak coprocessor's union root among them.  It verifies
+the receipt before it returns it.  Everything runs on `device`, the card
+unless the caller names another.  The groth16 kind, PoVW, the dev-mode
+prover, identity_p254 and shrink_wrap wait for their slices (ROADMAP.md
+queue 1) and raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..convert import card
+from . import recursion_driver
+from .claims import ExitCode
+from .exec import ExecutorEnv, ExecutorImpl, Session, resolve_segment
+from .receipt import (CompositeReceipt, InnerReceipt, Receipt,
+                      SegmentReceipt, VerifierContext, segment_claim,
+                      session_segment_output)
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to risc0_tpu_torch yet (ROADMAP.md queue 1)")
+
+
+HASHFN = "poseidon2"  # the one hash suite the port proves with
+
+
+@dataclass
+class ProverOpts:
+    """reference host/server/prove/opts.rs:28-59, the options served here.
+    `dev_mode` is the reference's switch to DevModeProver, which waits for
+    ROADMAP.md queue 1: get_prover_server raises on it."""
+
+    receipt_kind: str = "composite"  # composite | succinct (groth16 raises)
+    dev_mode: bool = False
+
+
+@dataclass
+class ProveInfo:
+    receipt: Receipt
+    session: Session
+
+
+class ProverServer:
+    """Interface (reference prove/mod.rs:54-256); ProverImpl serves it."""
+
+    def prove(self, env: ExecutorEnv, elf: bytes) -> ProveInfo:
+        session = ExecutorImpl(env, elf).run()
+        return self.prove_session(session)
+
+    def prove_session(self, session: Session) -> ProveInfo:
+        raise NotImplementedError
+
+
+class ProverImpl(ProverServer):
+    """The cryptographic local prover on `device` (reference
+    prove/prover_impl.rs:52-181)."""
+
+    def __init__(self, opts: ProverOpts | None = None, device="cuda"):
+        self.device = card(device)
+        self.opts = opts or ProverOpts()
+
+    def prove_session(self, session: Session) -> ProveInfo:
+        if getattr(session, "povw_job_id", None) is not None:
+            raise _not_ported("PoVW proving")
+        kind, *rest = session.exit_code
+        session_exit = ExitCode(kind, rest[0] if rest else 0)
+        # the final segment claims the output the guest committed, every
+        # assumption included (reference prover_impl.rs:98-114); resolve
+        # removes them in compress
+        output = session_segment_output(session)
+        receipts = []
+        for i, seg in enumerate(session.segments):
+            final = i == len(session.segments) - 1
+            receipts.append(self.prove_segment(
+                seg, segment_claim(seg, final, session_exit, output)))
+        composite = CompositeReceipt(
+            segments=receipts,
+            assumption_receipts=self._assumption_receipts(session))
+        if self.opts.receipt_kind == "composite":
+            inner = InnerReceipt("composite", composite)
+        elif self.opts.receipt_kind == "succinct":
+            inner = InnerReceipt("succinct",
+                                 self.compress_composite(composite))
+        elif self.opts.receipt_kind == "groth16":
+            raise _not_ported("the groth16 receipt kind")
+        else:
+            raise ValueError(f"unknown receipt kind {self.opts.receipt_kind}")
+        receipt = Receipt(inner, session.journal)
+        # self-check before returning (reference prover_impl.rs:155-170)
+        receipt.verify_integrity(self._verifier_ctx())
+        return ProveInfo(receipt=receipt, session=session)
+
+    def _assumption_receipts(self, session) -> list:
+        """One receipt per assumptions_used entry, head first (reference
+        prover_impl.rs:121-153): a proven entry keeps its receipt; an
+        unresolved one (sys_verify_integrity2, receipt None) takes the
+        keccak union-root receipt when its claim is that root's, and
+        raises otherwise."""
+        union_root = recursion_driver.keccak_union_root(
+            getattr(session, "pending_keccaks", []), self.device)
+        out = []
+        for a, r in session.assumptions_used:
+            if r is None:
+                root_claim = None if union_root is None else \
+                    recursion_driver.receipt_claim_digest(union_root)
+                if root_claim is None or not np.array_equal(
+                        np.asarray(a.claim, np.uint32), root_claim):
+                    raise ValueError(
+                        "no receipt available for unresolved assumption: "
+                        f"claim {bytes(np.asarray(a.claim, np.uint32)).hex()}")
+                r = union_root
+            if hasattr(r, "verify_integrity"):
+                out.append(r)
+        return out
+
+    def _verifier_ctx(self) -> VerifierContext:
+        from ..circuit.recursion.predicates import own_control_ids
+
+        _ids, root = own_control_ids()
+        return VerifierContext(hashfn=HASHFN, control_root=root)
+
+    def compress_composite(self, composite):
+        """CompositeReceipt -> SuccinctReceipt (reference
+        prover_impl.rs:183-213)."""
+        return recursion_driver.compress_composite(composite, self.device)
+
+    def prove_segment(self, seg, claim) -> SegmentReceipt:
+        return self.prove_segment_core(self.segment_preflight(seg), seg,
+                                       claim)
+
+    def segment_preflight(self, seg):
+        """Host half of segment proving (reference ProverServer::
+        segment_preflight, prove/mod.rs:79-82): an opaque result for
+        prove_segment_core."""
+        from ..circuit.rv32im.prove import segment_preflight
+
+        return segment_preflight(resolve_segment(seg), device=self.device)
+
+    def prove_segment_core(self, preflight, seg, claim) -> SegmentReceipt:
+        """Device half over a segment_preflight result (reference
+        ProverServer::prove_segment_core, prove/mod.rs:83-86)."""
+        from ..circuit.rv32im.prove import prove_segment_core
+
+        seal = prove_segment_core(preflight, device=self.device)
+        return SegmentReceipt(seal=seal, index=getattr(seg, "index", 0),
+                              hashfn=HASHFN, claim=claim)
+
+    def lift(self, segment_receipt):
+        return recursion_driver.lift(segment_receipt, self.device)
+
+    def join(self, a, b):
+        return recursion_driver.join(a, b, self.device)
+
+    def resolve(self, conditional, assumption):
+        return recursion_driver.resolve(conditional, assumption, self.device)
+
+    def union(self, a, b):
+        return recursion_driver.union(a, b, self.device)
+
+    def prove_keccak(self, request: dict):
+        """ProveKeccakRequest -> SuccinctReceipt (api.proto:63-71)."""
+        return recursion_driver.prove_keccak_request(request, self.device)
+
+    def identity_p254(self, receipt):
+        raise _not_ported("identity_p254 (the poseidon254 suite)")
+
+    def shrink_wrap(self, receipt):
+        raise _not_ported("shrink_wrap (Groth16)")
+
+
+def get_prover_server(opts: ProverOpts | None = None,
+                      device="cuda") -> ProverServer:
+    """reference prove/mod.rs:417-424"""
+    opts = opts or ProverOpts()
+    if opts.dev_mode:
+        raise _not_ported("the dev-mode prover")
+    return ProverImpl(opts, device)
+
+
+def default_prover(device="cuda") -> ProverServer:
+    return get_prover_server(device=device)

@@ -1,12 +1,10 @@
-"""Receipts: segment, composite and succinct containers and their
-verification (counterpart of part of ``risc0_tpu/zkvm/receipt.py``;
-reference risc0/zkvm/src/receipt.rs and receipt/{segment,composite,
-succinct,merkle}.rs).
+"""Receipts: segment, composite and succinct containers, the top-level
+receipt, and their verification (counterpart of part of
+``risc0_tpu/zkvm/receipt.py``; reference risc0/zkvm/src/receipt.rs and
+receipt/{segment,composite,succinct,merkle}.rs).
 
-Verification runs the port's host verifiers.  The Groth16 receipt and the
-keccak batcher's union-root claim wait for their slices (ROADMAP.md queue
-1): ``session_claim`` raises on a session with pending keccak requests
-instead of leaving them out.
+Verification runs the port's host verifiers.  The Groth16 and fake
+receipts wait for their slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -15,8 +13,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .claims import (Assumptions, ExitCode, MaybePruned, Output, ReceiptClaim,
-                     SystemState)
+from .claims import (Assumption, Assumptions, ExitCode, MaybePruned, Output,
+                     ReceiptClaim, SystemState, UnionClaim, bytes_digest,
+                     receipt_claim_ok)
 
 
 class VerificationError(Exception):
@@ -85,7 +84,8 @@ class CompositeReceipt:
         # every assumption to carry a verifiable receipt (reference
         # receipt/composite.rs:161-194).
         output = last.output
-        if output is not None and output.value is not None:
+        if output is not None and hasattr(output, "value") \
+                and output.value is not None:
             output = MaybePruned.of(Output(
                 output.value.journal, MaybePruned.of(Assumptions([]))))
         return ReceiptClaim(
@@ -178,24 +178,129 @@ class SuccinctReceipt:
             raise VerificationError(f"recursion seal invalid: {e}") from e
 
 
+@dataclass
+class InnerReceipt:
+    """The proof inside a Receipt: kind "composite" or "succinct"."""
+
+    kind: str
+    value: object
+
+    def claim(self) -> ReceiptClaim:
+        if self.kind == "composite":
+            return self.value.claim()
+        return self.value.claim
+
+    def verify_integrity(self, ctx: VerifierContext):
+        self.value.verify_integrity(ctx)
+
+
+@dataclass
+class Receipt:
+    """Top-level receipt: inner proof and journal (reference
+    receipt.rs:114-330)."""
+
+    inner: InnerReceipt
+    journal: bytes
+
+    def claim(self) -> ReceiptClaim:
+        return self.inner.claim()
+
+    def verify(self, image_id, ctx: VerifierContext | None = None):
+        """Full verification (reference receipt.rs:163-194): verify the
+        inner proof, then compare the claim digest with
+        ReceiptClaim::ok(image_id, journal), which fixes the pre-state to
+        the image ID, exit Halted(0), a zero input digest, a zeroed post
+        state, the journal and an empty assumptions list at once."""
+        ctx = ctx or VerifierContext()
+        self.inner.verify_integrity(ctx)
+        claim = self.claim()
+        expected = receipt_claim_ok(image_id, bytes_digest(self.journal))
+        if not np.array_equal(expected.digest(), claim.digest()):
+            raise VerificationError(
+                "receipt claim does not match the expected claim for "
+                f"image_id/journal (got exit={claim.exit_code}, "
+                "expected Halted(0))")
+
+    def verify_integrity(self, ctx: VerifierContext | None = None):
+        self.inner.verify_integrity(ctx or VerifierContext())
+
+
+def union_claim(da, db) -> UnionClaim:
+    """The UnionClaim that the union program proves over two assumption
+    digests: the lesser, as a tuple of u32 words (the reference's Digest
+    Ord), on the left.  recursion_driver.union orders its operands by it."""
+    da, db = np.asarray(da, np.uint32), np.asarray(db, np.uint32)
+    if tuple(db.tolist()) < tuple(da.tolist()):
+        da, db = db, da
+    return UnionClaim(left=da, right=db)
+
+
+def keccak_root_claim(pending_keccaks):
+    """Claim digest of the keccak union-MMR root assumption the guest-side
+    batcher commits (reference session.rs:239-256 keccak_root_assumption
+    and mmr.rs GuestPeak), computed on the host without proving.  Each
+    batch's claim is compute_keccak_digest of its inputs; claims merge by
+    peaks, in the order of recursion_driver.MerkleMountainAccumulator, as
+    the union receipts prove them: each operand is Assumption{claim, the
+    allowed-control-IDs root that the keccak lifts and unions carry}.  A
+    request's own control_root is not read: it is the root the guest names
+    for its assumption of the whole root (the zero digest, the verifier's
+    own root), not that of the lifted batches.  The JAX package merges the
+    bare claim digests instead, which its union program does not prove:
+    the two agree for one batch only (ROADMAP.md queue 3)."""
+    if not pending_keccaks:
+        return None
+    from ..circuit.keccak import compute_keccak_digest
+    from ..circuit.recursion.predicates import own_control_ids
+
+    _ids, root = own_control_ids()
+
+    def merge(a, b):
+        return union_claim(Assumption(a, root).digest(),
+                           Assumption(b, root).digest()).digest()
+
+    peaks: list = []  # (height, claim digest), back = smallest
+    for req in pending_keccaks:
+        item, height = compute_keccak_digest(req["input"]), 0
+        while peaks and peaks[-1][0] == height:
+            item = merge(item, peaks.pop()[1])
+            height += 1
+        peaks.append((height, item))
+    acc = peaks[0][1]
+    for _h, nxt in peaks[1:]:
+        acc = merge(acc, nxt)
+    return acc
+
+
+def session_segment_output(session) -> MaybePruned | None:
+    """The output the guest committed, journal and every assumption it
+    recorded (proven and unresolved), which the final segment claims
+    (reference prover_impl.rs:98-114)."""
+    kind, *rest = session.exit_code
+    if not ExitCode(kind, rest[0] if rest else 0).is_term:
+        return None
+    assumptions = Assumptions(
+        [MaybePruned.of(a) for a, _receipt in session.assumptions_used])
+    return MaybePruned.of(Output.of(session.journal, assumptions))
+
+
 def session_claim(session) -> ReceiptClaim:
     """The ReceiptClaim this session's final receipt proves (reference
     host/server/session.rs:199-256 Session::claim).  Its output lists only
     the assumptions without a receipt: proven ones are resolved during
-    compression.  A session with pending keccak requests raises: the
-    keccak batcher's union-root claim is not ported yet."""
-    if getattr(session, "pending_keccaks", None):
-        raise NotImplementedError(
-            f"session has {len(session.pending_keccaks)} pending keccak "
-            "requests: their union-root claim (keccak_root_claim) is not "
-            "ported to risc0_tpu_torch yet (ROADMAP.md queue 1)")
+    compression, and the keccak batcher's union-root assumption is left
+    out when the pending keccak requests reproduce it (the union receipt
+    resolves it at prove time)."""
     kind, *rest = session.exit_code
     exit_code = ExitCode(kind, rest[0] if rest else 0)
     output = None
     if exit_code.is_term:
-        unresolved = [MaybePruned.of(a)
-                      for a, receipt in session.assumptions_used
-                      if receipt is None]
+        kroot = keccak_root_claim(getattr(session, "pending_keccaks", []))
+        unresolved = [
+            MaybePruned.of(a) for a, receipt in session.assumptions_used
+            if receipt is None and not (
+                kroot is not None
+                and np.array_equal(np.asarray(a.claim, np.uint32), kroot))]
         output = MaybePruned.of(Output.of(session.journal,
                                           Assumptions(unresolved)))
     return ReceiptClaim(

@@ -1,14 +1,15 @@
-"""Recursion driver: lift rv32im segment receipts and join them into one
-succinct receipt (counterpart of the lift/join/compress part of
-``risc0_tpu/zkvm/recursion_driver.py``; reference risc0/zkvm/src/host/
-recursion/prove/mod.rs:73-260 and host/server/prove/prover_impl.rs).
+"""Recursion driver: lift rv32im segment and keccak receipts, join,
+union and resolve them into one succinct receipt (counterpart of
+``risc0_tpu/zkvm/recursion_driver.py`` without its PoVW and identity_p254
+parts; reference risc0/zkvm/src/host/recursion/prove/mod.rs:73-260 and
+host/server/prove/prover_impl.rs).
 
 The predicate programs and the allowed-control-IDs set are the
-repository's own (``circuit/recursion/predicates.py``).  Every helper
-returns a SuccinctReceipt carrying the full ReceiptClaim, so receipts can
-be joined further; each runs on `device`, the card unless the caller
-names another.  Resolve, union and the keccak lift wait for their
-slices (ROADMAP.md queue 1).
+repository's own (``circuit/recursion/predicates.py``); the keccak lifts
+are the released programs.  Every helper returns a SuccinctReceipt
+carrying its full claim, so receipts can be combined further; each runs
+on `device`, the card unless the caller names another, and passes `kw`
+(rng, eval_chunk) to ``prove_program``.
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ import numpy as np
 
 from .. import field as F
 from ..circuit.recursion.predicates import load_own_program, own_control_ids
-from ..circuit.recursion.prove import MerkleGroup, prove_zkr, read_sha_halfs
+from ..circuit.recursion.prove import (MerkleGroup, load_keccak_lift,
+                                       prove_zkr, read_sha_halfs)
 from ..convert import card
-from .claims import ReceiptClaim, opt_digest
-from .receipt import SuccinctReceipt, VerificationError
+from .claims import (Assumption, Assumptions, MaybePruned, Output,
+                     ReceiptClaim, opt_digest)
+from .receipt import SuccinctReceipt, VerificationError, union_claim
 
 
 def _allowed():
@@ -102,18 +105,201 @@ def join(left: SuccinctReceipt, right: SuccinctReceipt, device="cuda",
     return receipt
 
 
-def compress_composite(composite, device="cuda", **kw) -> SuccinctReceipt:
-    """Lift every segment receipt and left-fold joins on `device`
-    (reference prove/mod.rs:337-391 composite_to_succinct).  A composite
-    with assumption receipts raises: resolve is not ported yet."""
+def lift_keccak(keccak_seal, po2: int, device="cuda",
+                **kw) -> SuccinctReceipt:
+    """Keccak coprocessor seal -> SuccinctReceipt via the released
+    keccak_lift_{po2} program (reference host/server/prove/keccak.rs and
+    recursion/prove/mod.rs prove_keccak_lift), proved on `device`.  The
+    seal is verified on the host first; the receipt's claim is the pruned
+    keccak claim digest."""
+    from ..circuit.keccak.verify import (keccak_digest_from_globals,
+                                         verify_keccak_seal)
+
     device = card(device)
-    if composite.assumption_receipts:
-        raise NotImplementedError(
-            f"composite carries {len(composite.assumption_receipts)} "
-            "assumption receipts: resolve is not ported to risc0_tpu_torch "
-            "yet (ROADMAP.md queue 1)")
+    claim = keccak_digest_from_globals(verify_keccak_seal(keccak_seal),
+                                       montgomery=True)
+    # proved against the repository's allowed set (the keccak_lift IDs are
+    # members), so the receipt unions and resolves with rv32im receipts
+    # under one control root: the program echoes the tape's control root
+    # into its output, which union and resolve require to equal theirs
+    ids, leaves, root = _allowed()
+    tape = _words(root) + _words(keccak_seal)
+    for w in _words(claim):
+        tape += [w & 0xFFFF, w >> 16]
+    tape.append(1 << po2)
+    receipt = prove_zkr(load_keccak_lift(po2), ids[f"keccak_lift_{po2}"],
+                        leaves, tape, claim=MaybePruned.from_digest(claim),
+                        device=device, **kw)
+    if not np.array_equal(receipt_claim_digest(receipt), claim):
+        raise VerificationError("keccak lift claim digest mismatch")
+    return receipt
+
+
+def prove_keccak_request(request: dict, device="cuda",
+                         **kw) -> SuccinctReceipt:
+    """A ProveKeccakRequest (api.proto:63-71; the Session.pending_keccaks
+    entries: claim_digest, po2, control_root, input) -> SuccinctReceipt:
+    the keccak prove and its lift on `device`."""
+    from ..circuit.keccak.prove import prove_keccak
+
+    device = card(device)
+    po2 = int(request["po2"])
+    seal = prove_keccak(request["input"], po2, device=device)
+    receipt = lift_keccak(seal, po2, device, **kw)
+    want = request["claim_digest"]
+    want = (np.frombuffer(bytes(want), np.uint32)
+            if isinstance(want, (bytes, bytearray))
+            else np.asarray(want, np.uint32))
+    if not np.array_equal(receipt_claim_digest(receipt), want):
+        raise VerificationError(
+            "keccak claim digest mismatch vs guest request")
+    return receipt
+
+
+def _digest_of(v) -> np.ndarray:
+    return np.asarray(v if isinstance(v, np.ndarray) else v.digest(),
+                      np.uint32)
+
+
+def resolve(conditional: SuccinctReceipt, assumption: SuccinctReceipt,
+            device="cuda", **kw) -> SuccinctReceipt:
+    """Remove the head assumption from a conditional receipt's claim
+    (reference host/recursion/prove/mod.rs:214-258), proved on `device`.
+    The conditional's claim must carry an unpruned Output whose head
+    assumption is `assumption`'s claim."""
+    device = card(device)
+    claim = conditional.claim
+    out = claim.output.value if hasattr(claim.output, "value") \
+        else claim.output
+    if out is None or not out.assumptions.value.items:
+        raise VerificationError("conditional receipt has no assumptions")
+    items = out.assumptions.value.items
+    head = items[0]
+    head_claim = _digest_of(head.value.claim if hasattr(head, "value")
+                            else head.claim)
+    rest_digest = Assumptions(list(items[1:])).digest()
+    journal = _digest_of(out.journal)
+
+    ids, leaves, root = _allowed()
+    group = MerkleGroup(leaves)
+    tape = _words(root)
+    tape += _proof_words(group, conditional.control_id)
+    tape += _words(conditional.seal)
+    for d in (opt_digest(claim.input), claim.pre.digest(),
+              claim.post.digest()):
+        tape += _words(d)
+    tape += list(claim.exit_code.into_pair())
+    for d in (journal, head_claim, rest_digest):
+        tape += _words(d)
+    tape += _proof_words(group, assumption.control_id)
+    tape += _words(assumption.seal)
+
+    resolved = ReceiptClaim(
+        pre=claim.pre, post=claim.post, exit_code=claim.exit_code,
+        input=claim.input,
+        output=MaybePruned.of(Output(
+            MaybePruned.from_digest(journal),
+            MaybePruned.from_digest(rest_digest))))
+    receipt = prove_zkr(load_own_program("resolve"), ids["resolve"], leaves,
+                        tape, claim=resolved, device=device, **kw)
+    if not np.array_equal(receipt_claim_digest(receipt), resolved.digest()):
+        raise VerificationError("resolve output claim digest mismatch")
+    return receipt
+
+
+def _assumption_digest(receipt: SuccinctReceipt) -> np.ndarray:
+    """Assumption{claim, control_root = the receipt's allowed root}.digest()
+    (reference receipt/succinct.rs to_assumption(false))."""
+    return Assumption(np.asarray(receipt.claim.digest(), np.uint32),
+                      np.asarray(receipt.control_root, np.uint32)).digest()
+
+
+def union(a: SuccinctReceipt, b: SuccinctReceipt, device="cuda",
+          **kw) -> SuccinctReceipt:
+    """Two SuccinctReceipts -> one SuccinctReceipt[UnionClaim] (reference
+    host/recursion/prove/mod.rs:185-213), proved on `device`.  The operands
+    go in the order of their assumption digests in receipt.union_claim."""
+    device = card(device)
+    da = _assumption_digest(a)
+    claim = union_claim(da, _assumption_digest(b))
+    left, right = (a, b) if np.array_equal(claim.left, da) else (b, a)
+
+    ids, leaves, root = _allowed()
+    group = MerkleGroup(leaves)
+    tape = _words(root)
+    for r in (left, right):
+        tape += _proof_words(group, r.control_id)
+        tape += _words(r.seal)
+    receipt = prove_zkr(load_own_program("union"), ids["union"], leaves,
+                        tape, claim=claim, device=device, **kw)
+    if not np.array_equal(receipt_claim_digest(receipt), claim.digest()):
+        raise VerificationError("union output claim digest mismatch")
+    return receipt
+
+
+class MerkleMountainAccumulator:
+    """Accumulate receipts into one union receipt with a log-depth merge
+    tree (reference zkvm/src/mmr.rs:22-95).  `merge` defaults to the union
+    prover on the card; inject another to test the order of merges."""
+
+    def __init__(self, merge=None):
+        self.merge = merge or union
+        self.peaks: list = []  # (height, item), back = smallest
+
+    def insert(self, item):
+        height = 0
+        while self.peaks and self.peaks[-1][0] == height:
+            _, other = self.peaks.pop()
+            item = self.merge(item, other)
+            height += 1
+        self.peaks.append((height, item))
+
+    def root(self):
+        if not self.peaks:
+            raise ValueError("no elements in MMR")
+        items = [it for _h, it in self.peaks]
+        acc = items[0]
+        for nxt in items[1:]:
+            acc = self.merge(acc, nxt)
+        return acc
+
+
+def keccak_union_root(pending_keccaks, device="cuda",
+                      **kw) -> SuccinctReceipt | None:
+    """Prove every pending keccak request on `device` and union-merge the
+    receipts into the MMR root receipt that resolves the guest's keccak
+    root assumption (reference prover_impl.rs:121-139)."""
+    device = card(device)
+    if not pending_keccaks:
+        return None
+    mmr = MerkleMountainAccumulator(
+        merge=lambda a, b: union(a, b, device, **kw))
+    for req in pending_keccaks:
+        mmr.insert(prove_keccak_request(req, device, **kw))
+    return mmr.root()
+
+
+def _as_succinct(receipt):
+    """A top-level Receipt -> its inner succinct receipt (reference
+    InnerAssumptionReceipt conversion, receipt.rs succinct())."""
+    if hasattr(receipt, "inner"):
+        if receipt.inner.kind != "succinct":
+            raise VerificationError(
+                f"cannot resolve with a {receipt.inner.kind} assumption "
+                "receipt; compress it to succinct first")
+        return receipt.inner.value
+    return receipt
+
+
+def compress_composite(composite, device="cuda", **kw) -> SuccinctReceipt:
+    """Lift every segment receipt, left-fold joins, then resolve-fold the
+    assumption receipts head first, all on `device` (reference
+    prove/mod.rs:337-391 composite_to_succinct)."""
+    device = card(device)
     lifted = [lift(sr, device, **kw) for sr in composite.segments]
     acc = lifted[0]
     for nxt in lifted[1:]:
         acc = join(acc, nxt, device, **kw)
+    for ar in composite.assumption_receipts:
+        acc = resolve(acc, _as_succinct(ar), device, **kw)
     return acc

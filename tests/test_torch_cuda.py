@@ -263,3 +263,38 @@ def test_lift_on_the_card(dev):
     _ids, root = own_control_ids()
     receipt.verify_integrity(VerifierContext(control_root=root))
     assert np.array_equal(receipt.claim.digest(), decode_claim(seal).digest())
+
+
+# the keccak prove's data group: 1096 columns (68 full Poseidon2 blocks
+# and 8 words) at 2^17 rows, its 4x LDE, its leaves and a tree of 2^19
+# leaves
+def test_keccak_shapes(dev):
+    w = _words(np.random.default_rng(1096), (1096, 1 << 17), dev)
+    assert torch.equal(kntt.interpolate_ntt(w), kntt.interpolate_ntt_plain(w))
+    x = ntt_mod.expand(w, 2).contiguous()
+    del w
+    ev = kntt.evaluate_ntt(x, 2)
+    assert torch.equal(ev, kntt.evaluate_ntt_plain(x, 2))
+    del x
+    leaves = kp2.hash_rows(ev)
+    assert torch.equal(leaves, kp2.hash_rows_plain(ev))
+    del ev
+    for got, want in zip(kp2.merkle_fold(leaves),
+                         kp2.merkle_fold_plain(leaves)):
+        assert torch.equal(got, want)
+
+
+def test_keccak_seal_on_the_card_is_the_jax_seal(dev):
+    """The po2 14 keccak seal of the golden keccak lift's inputs, proved
+    on the card, is tests/data/keccak_seal_po2_14.npy word for word."""
+    import os
+
+    from risc0_tpu_torch.circuit.keccak.prove import prove_keccak
+
+    rng = np.random.default_rng(14)  # scripts/gen_keccak_seal.py inputs()
+    inputs = [[int(x) for x in rng.integers(0, 1 << 64, 25, dtype=np.uint64)]
+              for _ in range(2)]
+    seal = prove_keccak(inputs, 14, device=dev)
+    assert np.array_equal(seal, np.load(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "data",
+        "keccak_seal_po2_14.npy")))

@@ -55,7 +55,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for name in ("circuit.layout", "circuit.rv32im.claim",
                  "circuit.recursion.circuit", "circuit.recursion.preflight",
                  "circuit.recursion.prove", "circuit.recursion.predicates",
-                 "zkvm.receipt", "zkvm.recursion_driver"):
+                 "zkvm.receipt", "zkvm.recursion_driver",
+                 "circuit.keccak.circuit", "circuit.keccak.witgen",
+                 "circuit.keccak.prove", "circuit.keccak.verify",
+                 "zkvm.guest", "zkvm.prover", "keccak_guest"):
         assert "risc0_tpu_torch." + name in out["imported"]
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
@@ -94,6 +97,16 @@ _ENTRY_POINTS = {
     "compress_composite": "drv.compress_composite(CompositeReceipt("
                           "[SegmentReceipt(np.zeros(100, np.uint32), 0, "
                           "'poseidon2', None)]))",
+    "segment_preflight": "rv.segment_preflight(None, exec='device')",
+    "prove_keccak": "keccak.prove_keccak([[0] * 25], 14)",
+    "lift_keccak": "drv.lift_keccak(np.zeros(4, np.uint32), 14)",
+    "prove_keccak_request": "drv.prove_keccak_request("
+                            "{'po2': 14, 'input': [[0] * 25]})",
+    "union": "drv.union(None, None)",
+    "resolve": "drv.resolve(None, None)",
+    "keccak_union_root": "drv.keccak_union_root([{'input': [[0] * 25]}])",
+    "ProverImpl": "ProverImpl()",
+    "default_prover": "default_prover()",
 }
 
 _CALL_ALL = """
@@ -102,12 +115,14 @@ import numpy as np
 import torch
 from risc0_tpu_torch.circuit import fib
 from risc0_tpu_torch.circuit.rv32im import accum_device, exec_device
+from risc0_tpu_torch.circuit.keccak import prove as keccak
 from risc0_tpu_torch.circuit.recursion import prove as rec
 from risc0_tpu_torch.circuit.rv32im import prove as rv
 from risc0_tpu_torch.hal import torch_hal as hal
 from risc0_tpu_torch.hash.suite import POSEIDON2
 from risc0_tpu_torch.prove.prover import Prover
 from risc0_tpu_torch.zkvm import recursion_driver as drv
+from risc0_tpu_torch.zkvm.prover import ProverImpl, default_prover
 from risc0_tpu_torch.zkvm.receipt import CompositeReceipt, SegmentReceipt
 assert not torch.cuda.is_available()
 out = {}

@@ -15,7 +15,7 @@
   * the three golden succinct receipts of tests/test_golden.py verify in the
     port, and corrupted copies are rejected;
   * the allowed-control-IDs set, decode_claim, the suites and the errors of
-    what is not ported yet.
+    what is not ported yet, and the session claim of a keccak guest.
 
 Field arithmetic is exact, so every comparison is bit for bit.  A lift of
 the po2 14 seal on the CPU and the keccak_lift_14 control ID at po2 18 are
@@ -383,20 +383,32 @@ def test_only_the_poseidon2_suite_is_served():
             hashfn="poseidon254", control_root=ctx.control_root))
 
 
-def test_assumptions_and_keccaks_raise():
-    from risc0_tpu_torch.zkvm.receipt import CompositeReceipt, session_claim
-    from risc0_tpu_torch.zkvm.recursion_driver import compress_composite
+def test_session_claim_leaves_out_the_keccak_root():
+    """A session whose guest assumed the union root of its pending keccak
+    requests (sys_verify_integrity2) claims no assumption: the root's
+    receipt resolves it at prove time.  tests/test_torch_composition.py
+    holds the claims, tapes and resolve fold against the JAX package."""
+    from risc0_tpu_torch.zkvm.claims import ExitCode
+    from risc0_tpu_torch.zkvm.receipt import (keccak_root_claim,
+                                              session_claim,
+                                              session_segment_output)
 
-    with pytest.raises(NotImplementedError, match="resolve"):
-        compress_composite(CompositeReceipt(segments=[object()],
-                                            assumption_receipts=[object()]),
-                           device="cpu")
+    requests = [{"input": [[i] * 25]} for i in range(3)]
+    root = keccak_root_claim(requests)
+    zero = np.zeros(8, np.uint32)
 
     class Session:
-        pending_keccaks = [{"input": [0] * 25}]
+        exit_code = ("Halted", 0)
+        journal = b"j"
+        pre_state = post_state = input_digest = zero
+        pending_keccaks = requests
+        assumptions_used = [(Assumption(root, zero), None)]
 
-    with pytest.raises(NotImplementedError, match="keccak"):
-        session_claim(Session())
+    claim = session_claim(Session())
+    assert claim.exit_code == ExitCode("Halted", 0)
+    assert claim.output.value.assumptions.value.items == []
+    assert len(session_segment_output(
+        Session()).value.assumptions.value.items) == 1
 
 
 @pytest.mark.slow
