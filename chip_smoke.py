@@ -59,13 +59,31 @@ non-zero:
                the golden keccak lift's inputs, which must equal the JAX
                package's (tests/data/keccak_seal_po2_14.npy)
 
+  9. snark   - stark-to-snark: identity_p254 of phase 7's lift_rv32im_20
+               receipt on the card, one po2 18 recursion prove under the
+               Poseidon254 suite at full width (its Merkle trees hashed on
+               the host and their layers uploaded to the card, under their
+               own scopes); wall time, stage table,
+               the host Poseidon254 share, peak device memory, seal words
+               and SHA-256.  The p254 receipt must carry the inner claim,
+               pass verify_integrity under poseidon254 (the singleton
+               identity_p254 root, the Poseidon2 root as inner root) and
+               reject a flipped word; both NTT kernels must have run in
+               it, and no Poseidon2 kernel.  Then its seal_to_json
+               witness (size, SHA-256); the port's Groth16 verifier on the
+               golden Groth16 receipt and the reference proof.json, each
+               also rejected with a public input changed; and a small
+               Groth16 setup, prove and verify on the host.  The full
+               Groth16 wrap is scripts/torch_groth16_wrap.py
+
 Phase 3 also holds the kernels at the recursion prove's shapes (12, 23
 and 128 columns at 2^18 rows, the check group, trees of 2^20 leaves, its
 FRI rounds) and at the keccak prove's (1096 columns at 2^17 rows and at
 2^19 for the leaves, the commit's chunks of 32 and 8 columns, a tree of
 2^19 leaves).  The last two lines are a JSON object {"kernels": [...]}
 (launches: phase 6's prove; launches_recursion: phase 7's;
-launches_composition: phase 8's) and {"ok": true, "device": {...}}.
+launches_composition: phase 8's; launches_snark: phase 9's identity_p254)
+and {"ok": true, "device": {...}}.
 Imports nothing of jax.
 """
 
@@ -549,7 +567,7 @@ def phase_recursion(dev, seal20, counters, log):
     if missing:
         raise AssertionError(f"kernels not launched by the recursion "
                              f"proves: {missing}")
-    return launches
+    return launches, lifted
 
 KECCAK_BATCHES = (655, 3)  # the first batch full: (1 << 17) // 200 states
 
@@ -700,6 +718,182 @@ def phase_composition(dev, counters, rec_log):
     return launches
 
 
+P254_SCOPES = ("poseidon254_readback", "poseidon254_leaves",
+               "poseidon254_folds", "poseidon254_upload")
+
+
+def _scope_sums(stages, names):
+    """{name: seconds} summed over every dotted path that ends in name."""
+    return {n: sum(secs for path, (_c, secs) in stages.items()
+                   if path.split(".")[-1] == n) for n in names}
+
+
+def _golden_groth16():
+    from risc0_tpu_torch.groth16 import native as nat
+    from risc0_tpu_torch.groth16.verifier import VerifyingKey
+
+    z = np.load(os.path.join(ROOT, "tests", "data",
+                             "groth16_receipt_golden.npz"))
+    vk = VerifyingKey(
+        alpha_g1=nat.g1_from_arr(z["vk_alpha_g1"])[0],
+        beta_g2=nat.g2_from_arr(z["vk_beta_g2"])[0],
+        gamma_g2=nat.g2_from_arr(z["vk_gamma_g2"])[0],
+        delta_g2=nat.g2_from_arr(z["vk_delta_g2"])[0],
+        ic=nat.g1_from_arr(z["vk_ic"]))
+    return z, vk
+
+
+def phase_snark(dev, lifted, counters, log):
+    """Stark-to-snark: identity_p254 of phase 7's lift on the card, the
+    p254 receipt checked and its witness JSON made; the port's Groth16
+    verifier on the golden receipts; a small Groth16 round trip on the
+    host.  Returns {kernel: launches over identity_p254}."""
+    from risc0_tpu_torch.circuit.recursion.predicates import (
+        identity_p254_control_id, own_control_ids)
+    from risc0_tpu_torch.circuit.recursion.prove import MerkleGroup
+    from risc0_tpu_torch.circuit.rv32im.claim import decode_claim
+    from risc0_tpu_torch.groth16 import prove as GP
+    from risc0_tpu_torch.groth16.r1cs import CS
+    from risc0_tpu_torch.groth16.seal_to_json import to_json
+    from risc0_tpu_torch.groth16.verifier import (Verifier,
+                                                  proof_json_to_seal)
+    from risc0_tpu_torch.hash.suite import POSEIDON254
+    from risc0_tpu_torch.zkvm.receipt import (Groth16Receipt,
+                                              Groth16ReceiptVerifierParameters,
+                                              VerificationError,
+                                              VerifierContext)
+    from risc0_tpu_torch.zkvm.recursion_driver import (identity_p254,
+                                                       receipt_claim_digest)
+
+    for fn in counters:
+        fn.launches = 0
+    n = len(log)
+    secs, p254 = _wall_s(lambda: identity_p254(
+        lifted, device=dev, rng=np.random.default_rng(11)))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    (rec,) = log[n:]
+    seal = np.asarray(p254.seal, np.uint32)
+    stages = rec["stages"]
+    host = _scope_sums(stages, P254_SCOPES)
+    p254_s = host["poseidon254_leaves"] + host["poseidon254_folds"]
+    top = {k: v for k, v in stages.items() if "." not in k or (
+        k.startswith("commit_group.") and k.count(".") == 1)}
+    device_s = sum(secs_ for k, (_c, secs_) in top.items()
+                   if k not in ("rec_preflight", "rec_witgen", "rec_accum"))
+    print(f"snark: identity_p254 of the lift_rv32im_20 receipt: {secs:.3f} "
+          f"s, seal {len(seal)} words, SHA-256 "
+          f"{hashlib.sha256(seal.tobytes()).hexdigest()}, peak device "
+          f"memory {rec['peak'] / 2**30:.2f} GiB", flush=True)
+    print("snark: stage table (s, calls; each top-level scope ends in a "
+          "device sync): " + ", ".join(
+              f"{k} {v[1]:.3f} x{v[0]}" for k, v in top.items()), flush=True)
+    print(f"snark: host Poseidon254 trees {p254_s:.3f} s of {secs:.3f} "
+          f"({100 * p254_s / secs:.1f}%): leaves "
+          f"{host['poseidon254_leaves']:.3f}, folds "
+          f"{host['poseidon254_folds']:.3f}; readback of the evaluated "
+          f"matrices {host['poseidon254_readback']:.3f}, upload of the "
+          f"layers {host['poseidon254_upload']:.3f}; the prove's "
+          f"stages past the witgen, trees and copies included, "
+          f"{device_s:.3f} s", flush=True)
+
+    _ids, root = own_control_ids()
+    p254_id = identity_p254_control_id()
+    ctx = VerifierContext(
+        hashfn="poseidon254",
+        control_root=MerkleGroup([p254_id], POSEIDON254).calc_root(),
+        inner_control_root=root)
+    same = (np.array_equal(p254.claim.digest(), lifted.claim.digest())
+            and np.array_equal(receipt_claim_digest(p254),
+                               receipt_claim_digest(lifted)))
+    t0 = time.perf_counter()
+    p254.verify_integrity(ctx)
+    verify_s = time.perf_counter() - t0
+    bad = np.array(seal)
+    bad[len(bad) // 2] ^= 1
+    try:
+        dataclasses.replace(p254, seal=bad).verify_integrity(ctx)
+    except VerificationError as e:
+        rejected = str(e)
+    else:
+        raise AssertionError("a corrupted p254 receipt was accepted")
+    print(f"snark: p254 receipt verified (poseidon254, the singleton "
+          f"identity_p254 root, the Poseidon2 root as inner root) in "
+          f"{verify_s:.2f} s; claim == the inner receipt's: {same}; "
+          f"flipped word rejected ({rejected})", flush=True)
+    if not same:
+        raise AssertionError("the p254 claim differs from the inner claim")
+    print(f"snark: launches over identity_p254 {json.dumps(launches)}",
+          flush=True)
+    missing = [k for k in ("evaluate_ntt", "interpolate_ntt")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"NTT kernels not launched by the p254 prove: "
+                             f"{missing}")
+    if launches["hash_rows"] or launches["hash_pairs"]:
+        raise AssertionError("a Poseidon2 kernel ran in the p254 prove")
+
+    t0 = time.perf_counter()
+    witness = to_json(seal)
+    print(f"snark: seal_to_json {len(witness)} bytes, SHA-256 "
+          f"{hashlib.sha256(witness.encode()).hexdigest()} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    z, vk = _golden_groth16()
+    params = Groth16ReceiptVerifierParameters.default()
+    params.verifying_key = vk
+    claim = decode_claim(np.load(os.path.join(ROOT, "tests", "data",
+                                              "rv32im_seal_po2_14.npy")))
+    golden = Groth16Receipt(seal=z["seal"].tobytes(), claim=claim,
+                            verifier_parameters=z["verifier_parameters"])
+    golden.verify_integrity(VerifierContext(groth16_params=params))
+    bad_params = dataclasses.replace(
+        params, control_root=params.control_root ^ np.uint32(1))
+    try:
+        golden.verify_integrity(VerifierContext(groth16_params=bad_params))
+    except VerificationError:
+        pass
+    else:
+        raise AssertionError("the golden Groth16 receipt verified with a "
+                             "public input changed")
+    gdir = os.path.join(ROOT, "tests", "data", "groth16")
+    proof, public, vk_json = (
+        json.load(open(os.path.join(gdir, f + ".json")))
+        for f in ("proof", "public", "verification_key"))
+    if not Verifier.from_json(proof, public, vk_json).verify():
+        raise AssertionError("the reference Groth16 vectors do not verify")
+    if Verifier.from_json(proof, [str(int(public[0]) + 1)],
+                          vk_json).verify():
+        raise AssertionError("the reference Groth16 vectors verified with "
+                             "a public input changed")
+    print(f"snark: golden Groth16 receipt (embedded vk) and the reference "
+          f"proof.json/public.json verified, each rejected with a public "
+          f"input changed ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    def small(x_val, y_val):
+        cs = CS(check=True)
+        pub = cs.alloc_public()
+        x, y = cs.witness(x_val), cs.witness(y_val)
+        cs.bind_public(pub, (x * y + x + 7) * (x * y + x + 7) + y)
+        cs.finalize()
+        return cs
+
+    t0 = time.perf_counter()
+    pk, vk_small = GP.setup(small(3, 4))
+    proof = GP.prove(pk, small(10, 20))
+    seal_g = proof_json_to_seal(proof)
+    w = [int.from_bytes(seal_g[32 * i: 32 * i + 32], "big") for i in range(8)]
+    pts = ((w[0], w[1]), ((w[3], w[2]), (w[5], w[4])), (w[6], w[7]))
+    ok = Verifier(*pts, [int(proof["public"][0])], vk_small).verify()
+    wrong = Verifier(*pts, [int(proof["public"][0]) + 1], vk_small).verify()
+    print(f"snark: small Groth16 setup/prove/verify on the host: verified "
+          f"{ok}, a changed public input rejected {not wrong} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if not ok or wrong:
+        raise AssertionError("the small Groth16 round trip failed")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -741,8 +935,9 @@ def main() -> int:
     from risc0_tpu_torch.circuit.recursion import prove as rprove
     rec_log = []
     _watch(rprove, "prove_program", rec_log)
-    launches_rec = phase_recursion(dev, seal, counters, rec_log)
+    launches_rec, lifted = phase_recursion(dev, seal, counters, rec_log)
     launches_comp = phase_composition(dev, counters, rec_log)
+    launches_snark = phase_snark(dev, lifted, counters, rec_log)
 
     meta = {
         "hash_rows": ("poseidon2.cu", "risc0_tpu/hal/pallas/poseidon2.py:121"),
@@ -755,6 +950,7 @@ def main() -> int:
         "source": f"risc0_tpu_torch/csrc/{src}", "replaces": replaces,
         "launches": launches[name], "launches_recursion": launches_rec[name],
         "launches_composition": launches_comp[name],
+        "launches_snark": launches_snark[name],
         "max_abs_err": rec[name]["max_abs_err"],
         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
         "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],

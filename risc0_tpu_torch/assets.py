@@ -1,7 +1,8 @@
 """Paths of the repository's non-Python assets that the port reads.
 
 They are data, not code: the extracted circuit tables and witgen programs,
-the recursion programs (zkr) and control IDs, the v1compat kernel ELF,
+the recursion programs (zkr) and control IDs, the Poseidon254 constants,
+the v1compat kernel ELF,
 and the C++ executor's sources (built into ``csrc/libr0vm.so``).  They
 live beside the JAX package in the repository and are found here by a
 path from the repository root, in one place.
@@ -20,4 +21,6 @@ RECURSION_DATA = os.path.join(ROOT, "risc0_tpu", "circuit", "recursion",
 # the recursion programs (zkr): the released keccak lifts and the
 # repository's own predicates, xz-compressed code words
 RECURSION_ZKR = os.path.join(RECURSION_DATA, "zkr")
+# the Poseidon254 suite's round constants and MDS matrix
+P254_CONSTS = os.path.join(ROOT, "risc0_tpu", "hash", "poseidon254_consts.json")
 V1COMPAT_ELF = os.path.join(ROOT, "risc0_tpu", "zkvm", "data", "v1compat.elf")

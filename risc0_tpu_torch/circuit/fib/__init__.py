@@ -184,11 +184,12 @@ def _info_digest(suite, info: bytes):
     return suite.hash_elem_slice(F.encode_np(words.astype(np.uint32)))
 
 
-def prove(po2: int, f0: int = 1, f1: int = 1, seed: int = 0, device="cuda"):
+def prove(po2: int, f0: int = 1, f1: int = 1, seed: int = 0, device="cuda",
+          suite=None):
     """Produce a fib seal on `device` (the card unless the caller names
-    another)."""
+    another) under `suite` (default Poseidon2)."""
     device = card(device)
-    suite = POSEIDON2
+    suite = suite or POSEIDON2
     code, data, out, active = witgen(po2, f0, f1, seed)
 
     prover = Prover(suite, TAPS, device)
@@ -212,23 +213,26 @@ def prove(po2: int, f0: int = 1, f1: int = 1, seed: int = 0, device="cuda"):
     return prover.finalize([mix, out], FibCircuitHal())
 
 
-def code_root(po2: int, device="cuda") -> np.ndarray:
+def code_root(po2: int, device="cuda", suite=POSEIDON2) -> np.ndarray:
     """Deterministic code-group Merkle root for check_code."""
     device = card(device)
     code, _, _, _ = witgen(po2)
     coeffs = hal.make_coeffs(hal.as_words(code, device))
-    return PolyGroup.from_coeffs(coeffs).merkle.root
+    return PolyGroup.from_coeffs(coeffs, suite).merkle.root
 
 
-def verify(seal: np.ndarray, device="cuda"):
-    """Verify a fib seal; the code root is recomputed on `device`."""
+def verify(seal: np.ndarray, device="cuda", suite=None):
+    """Verify a fib seal under `suite` (default Poseidon2); the code root
+    is recomputed on `device`."""
     device = card(device)
+    suite = suite or POSEIDON2
     seal = np.asarray(seal, np.uint32)
     if len(seal) == 0 or seal[0] != SEAL_VERSION:
         raise V.VerificationError("bad seal version")
 
     def check_code(po2, root):
-        if not np.array_equal(np.asarray(root), code_root(po2, device)):
+        if not np.array_equal(np.asarray(root),
+                              code_root(po2, device, suite)):
             raise V.VerificationError("code root mismatch")
 
-    return V.verify(FibCircuit(), POSEIDON2, seal[1:], check_code)
+    return V.verify(FibCircuit(), suite, seal[1:], check_code)

@@ -117,15 +117,18 @@ def load_circuit() -> RecursionCircuit:
                             pe["ret"])
 
 
-def verify_recursion_seal(seal, check_control_id=None) -> np.ndarray:
+def verify_recursion_seal(seal, check_control_id=None,
+                          suite=None) -> np.ndarray:
     """Verify a recursion-circuit seal (the inner check of SuccinctReceipt
-    verification, reference receipt/succinct.rs:103-190) under the
-    Poseidon2 suite; returns the 32 output globals.  `check_control_id`
-    receives (po2, code_root) and raises if the program is not allowed."""
+    verification, reference receipt/succinct.rs:103-190) under `suite`
+    (default Poseidon2; Poseidon254 for identity_p254 receipts); returns
+    the 32 output globals.  `check_control_id` receives (po2, code_root)
+    and raises if the program is not allowed."""
     from ...hash.suite import POSEIDON2
     from ...verify import verifier as V
 
-    return V.verify(load_circuit(), POSEIDON2, np.asarray(seal, np.uint32),
+    return V.verify(load_circuit(), suite or POSEIDON2,
+                    np.asarray(seal, np.uint32),
                     check_control_id or (lambda po2, root: None))
 
 

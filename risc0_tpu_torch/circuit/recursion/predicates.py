@@ -29,3 +29,12 @@ def own_control_ids():
                 allow_pickle=True)
     ids = {str(n): z["ids"][i] for i, n in enumerate(z["names"])}
     return ids, z["root"]
+
+
+def identity_p254_control_id():
+    """The identity program's code commitment under the Poseidon254 suite
+    (reference control_id.rs BN254_IDENTITY_CONTROL_ID), vendored beside
+    the Poseidon2 set."""
+    z = np.load(os.path.join(RECURSION_DATA, "own_control_ids.npz"),
+                allow_pickle=True)
+    return z["identity_p254"]

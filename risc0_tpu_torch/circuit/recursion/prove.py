@@ -70,12 +70,13 @@ class Program:
         buf[:, :self.code_rows] = self.code.T
         return buf
 
-    def control_id(self, device="cuda"):
+    def control_id(self, device="cuda", suite=POSEIDON2):
         """Merkle root of the committed code group (zk shifted, as every
-        commit), computed on `device`."""
+        commit) under `suite`, computed on `device`."""
         device = card(device)
         enc = F.encode_np(self.ctrl_buffer() % F.P)
-        return PolyGroup.commit_witness(enc, device).merkle.root
+        return PolyGroup.commit_witness(enc, device,
+                                        suite=suite).merkle.root
 
 
 def _load_zkr(name, po2=RECURSION_PO2):
@@ -219,12 +220,13 @@ def _loc(msg, meta):
 
 
 def prove_program(program: Program, input_words, rng=None, device="cuda",
-                  eval_chunk: int = EVAL_CHUNK):
+                  eval_chunk: int = EVAL_CHUNK, suite=None):
     """Run and prove a recursion program on `device` (the card unless the
-    caller names another); returns (seal, output words).  The seal is the
-    reference's word for word for the same `rng`."""
+    caller names another) under `suite` (default Poseidon2); returns
+    (seal, output words).  The seal is the reference's word for word for
+    the same `rng`."""
     device = card(device)
-    suite = POSEIDON2
+    suite = suite or POSEIDON2
     rng = rng or np.random.default_rng()
     circuit = load_prover_circuit()
 
@@ -259,21 +261,23 @@ ALLOWED_CODE_MERKLE_DEPTH = 8  # reference receipt/merkle.rs:30
 
 
 class MerkleGroup:
-    """Fixed-depth Merkle set of allowed recursion control IDs (Poseidon2)."""
+    """Fixed-depth Merkle set of allowed recursion control IDs, hashed
+    under `suite` (default Poseidon2)."""
 
-    def __init__(self, leaves):
+    def __init__(self, leaves, suite=None):
         if len(leaves) >= 1 << ALLOWED_CODE_MERKLE_DEPTH:
             raise ValueError(f"{len(leaves)} control IDs do not fit the set")
         self.depth = ALLOWED_CODE_MERKLE_DEPTH
         self.leaves = [np.asarray(d, np.uint32) for d in leaves]
+        self.suite = suite or POSEIDON2
 
     def _root(self, start, end):
         if start + 1 == end:
             return self.leaves[start] if start < len(self.leaves) \
                 else np.zeros(8, np.uint32)
         mid = (start + end) // 2
-        return POSEIDON2.hash_pair(self._root(start, mid),
-                                   self._root(mid, end))
+        return self.suite.hash_pair(self._root(start, mid),
+                                    self._root(mid, end))
 
     def calc_root(self):
         return self._root(0, 1 << self.depth)
@@ -306,24 +310,27 @@ def read_sha_halfs(shorts):
 
 
 def prove_zkr(program: Program, control_id, allowed_control_ids,
-              input_words, claim=None, **kw):
+              input_words, claim=None, suite=None, **kw):
     """Prove a recursion program and wrap it as a SuccinctReceipt
     (reference host/recursion/prove/mod.rs:393-440).  `claim` defaults to
-    the pruned claim digest decoded from the seal's output; `kw` goes to
+    the pruned claim digest decoded from the seal's output.  `suite` is
+    the outer proof's hash suite (Poseidon254 for the BN254 wrap), and the
+    allowed-control-IDs set hashes under it too; `kw` goes to
     ``prove_program`` (rng, device, eval_chunk)."""
     from ...zkvm.claims import MaybePruned
     from ...zkvm.receipt import SuccinctReceipt
 
-    seal, _output = prove_program(program, input_words, **kw)
+    suite = suite or POSEIDON2
+    seal, _output = prove_program(program, input_words, suite=suite, **kw)
     if claim is None:
         out = F.decode_np(np.asarray(seal[:32], np.uint32))
         claim = MaybePruned.from_digest(read_sha_halfs(out[16:32]))
-    group = MerkleGroup(allowed_control_ids)
+    group = MerkleGroup(allowed_control_ids, suite)
     return SuccinctReceipt(
         seal=np.asarray(seal, np.uint32),
         control_id=np.asarray(control_id, np.uint32),
         claim=claim,
         control_root=group.calc_root(),
         control_inclusion_proof=group.get_proof(control_id),
-        hashfn=POSEIDON2.name,
+        hashfn=suite.name,
     )

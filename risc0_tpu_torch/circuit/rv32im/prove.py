@@ -59,15 +59,16 @@ def segment_preflight(seg, rand_z=None, rng=None, device="cuda",
 
 def prove_segment(seg, rand_z=None, rng=None, device="cuda",
                   eval_chunk: int = EVAL_CHUNK, exec: str = "host",
-                  accum: str = "device"):
+                  accum: str = "device", suite=None):
     """Prove one executed segment on `device` (the card unless the caller
-    names another); returns the seal (u32).  exec and accum say where each
-    witness is generated: "host" (C++) or "device"."""
+    names another) under `suite` (default Poseidon2); returns the seal
+    (u32).  exec and accum say where each witness is generated: "host"
+    (C++) or "device"."""
     device = card(device)
     res = segment_preflight(seg, rand_z=rand_z, rng=rng, device=device,
                             exec=exec)
     return prove_segment_core(res, device=device, eval_chunk=eval_chunk,
-                              accum=accum)
+                              accum=accum, suite=suite)
 
 
 def _info_digest(suite, info: bytes):
@@ -89,7 +90,7 @@ def open_seal(prover, suite, circuit_info: bytes, global_m, po2: int):
 
 
 def prove_segment_core(res, device="cuda", eval_chunk: int = EVAL_CHUNK,
-                       accum: str = "device"):
+                       accum: str = "device", suite=None):
     """Device half of segment proving over a preflight/witgen result
     (reference ProverServer::prove_segment_core).  The accum witness is
     generated on `device` (accum="device", the reference's default) or by
@@ -97,7 +98,7 @@ def prove_segment_core(res, device="cuda", eval_chunk: int = EVAL_CHUNK,
     device = card(device)
     if accum not in ("host", "device"):
         raise ValueError(f"accum={accum!r}: 'host' or 'device'")
-    suite = POSEIDON2
+    suite = suite or POSEIDON2
     circuit = load_circuit()
     cycles = res["rows"]
     po2 = cycles.bit_length() - 1

@@ -1,11 +1,11 @@
-"""Device op layer ("HAL") on torch (counterpart of ``risc0_tpu/hal/jnp_hal.py``,
-Poseidon2 suite).
+"""Device op layer ("HAL") on torch (counterpart of ``risc0_tpu/hal/jnp_hal.py``).
 
 Shapes follow the reference: base-element polynomial batches are int32
 (count, n) tensors of Montgomery words, extension elements have a
 trailing axis of 4.  Every op runs on the device of its input tensors.
 The NTTs and the Poseidon2 hashes go through the kernel wrappers in
-``hal/cuda/``; everything else is plain torch.
+``hal/cuda/``; everything else is plain torch.  The Merkle trees of the
+other hash suites are hashed on the host (``hash/suite.py``).
 
 Sums of many field words are taken in int64 and reduced once (the
 reference splits them into 16-bit halves only because the TPU has no
@@ -19,8 +19,10 @@ import numpy as np
 import torch
 
 from .. import field as F
-from ..convert import card, to_torch
+from .. import perf
+from ..convert import card, to_numpy, to_torch
 from ..core import ntt
+from ..hash.suite import POSEIDON2
 from .cuda import ntt as kntt
 from .cuda import poseidon2 as kp2
 
@@ -207,15 +209,30 @@ def fri_fold(planar_coeffs, mix):
 # Merkle hashing and the commit pipelines
 # ---------------------------------------------------------------------------
 
-def merkle_layers(matrix):
+def merkle_layers(matrix, suite=POSEIDON2):
     """All Merkle layers of a (cols, rows) matrix, rows a power of two:
     layers[0] = leaf digests (rows, 8), layers[-1] = (1, 8) root
-    (reference prove/merkle.rs:54-80)."""
-    leaves = kp2.hash_rows(matrix)
-    return [leaves] + kp2.merkle_fold(leaves)
+    (reference prove/merkle.rs:54-80), on the matrix's device.  A suite
+    `on_card` hashes with the card's kernels; the others read the matrix
+    back once, hash it on the host and upload the layers in one copy."""
+    if suite.on_card:
+        leaves = kp2.hash_rows(matrix)
+        return [leaves] + kp2.merkle_fold(leaves)
+    with perf.scope(f"{suite.name}_readback"):
+        host = to_numpy(matrix)
+    with perf.scope(f"{suite.name}_leaves"):
+        layers = [suite.hash_rows(host)]
+    with perf.scope(f"{suite.name}_folds"):
+        while layers[-1].shape[0] > 1:
+            cur = layers[-1]
+            layers.append(suite.hash_pairs(cur[0::2], cur[1::2]))
+    with perf.scope(f"{suite.name}_upload"):
+        flat = to_torch(np.concatenate(layers), matrix.device)
+    return list(torch.split(flat, [len(l) for l in layers]))
 
 
-def commit_pipeline(witness, encode: bool = False, device="cuda"):
+def commit_pipeline(witness, encode: bool = False, device="cuda",
+                    suite=POSEIDON2):
     """iNTT -> zk-shift -> 4x LDE -> Merkle for one (cols, rows) group.
     `witness` is numpy u32 or an int32 tensor; encode=True takes a
     standard-form witness and Montgomery-encodes it on the device.
@@ -223,17 +240,20 @@ def commit_pipeline(witness, encode: bool = False, device="cuda"):
     device = card(device)
     cols, rows = witness.shape
     if cols * rows * INV_RATE * 4 > COMMIT_CHUNK_BYTES:
-        return commit_pipeline_chunked(witness, encode=encode, device=device)
+        return commit_pipeline_chunked(witness, encode=encode, device=device,
+                                       suite=suite)
     w = as_words(witness, device)
     if encode:
         w = F.encode(w)
     coeffs = make_coeffs(w)
     evaluated = expand_evaluate(coeffs, 2)
-    return ntt.bit_reverse(coeffs), evaluated, merkle_layers(evaluated)
+    return (ntt.bit_reverse(coeffs), evaluated,
+            merkle_layers(evaluated, suite))
 
 
 def commit_pipeline_chunked(witness, encode: bool = False, device="cuda",
-                            chunk_cols: int = COMMIT_CHUNK_COLS):
+                            chunk_cols: int = COMMIT_CHUNK_COLS,
+                            suite=POSEIDON2):
     """commit_pipeline over column chunks: per-column NTTs are exact under
     chunking, so the result equals the fused path."""
     device = card(device)
@@ -249,10 +269,11 @@ def commit_pipeline_chunked(witness, encode: bool = False, device="cuda",
         coeffs = make_coeffs(chunk.contiguous())
         evaluated[c0:c1] = expand_evaluate(coeffs, 2)
         coeffs_nat[c0:c1] = ntt.bit_reverse(coeffs)
-    return coeffs_nat, evaluated, merkle_layers(evaluated)
+    return coeffs_nat, evaluated, merkle_layers(evaluated, suite)
 
 
-def check_pipeline(check_poly, check_size: int = 16):
+def check_pipeline(check_poly, check_size: int = 16,
+                   suite=POSEIDON2):
     """Check-group commit: iNTT the (4, domain) check polynomial, read the
     bit-reversed coefficients as `check_size` base polys with no data
     movement (reference prover.rs:159-178), then LDE + Merkle."""
@@ -260,4 +281,5 @@ def check_pipeline(check_poly, check_size: int = 16):
     coeffs_br = kntt.interpolate_ntt(check_poly.contiguous()) \
         .reshape(check_size, cycles)
     evaluated = expand_evaluate(coeffs_br, 2)
-    return ntt.bit_reverse(coeffs_br), evaluated, merkle_layers(evaluated)
+    return (ntt.bit_reverse(coeffs_br), evaluated,
+            merkle_layers(evaluated, suite))

@@ -28,18 +28,24 @@ class _ProveRound:
         self.domain = coeffs.shape[1] * INV_RATE
         evaluated = hal.expand_evaluate(coeffs, 2)  # (4, domain)
         matrix = evaluated.reshape(FRI_FOLD * 4, self.domain // FRI_FOLD)
-        self.merkle = MerkleTreeProver(matrix, QUERIES)
+        self.merkle = MerkleTreeProver(matrix, QUERIES, iop.suite)
         self.merkle.commit(iop)
         self.coeffs = hal.fri_fold(coeffs, iop.random_ext_elem())
 
 
-def _final_and_digest(coeffs):
-    """Bit-reverse the final coefficients and sponge-hash them (one row of
-    4*size words through the row-hash kernel); one readback returns
-    [final.ravel() | digest(8)]."""
+def _final_and_digest(coeffs, suite):
+    """Bit-reverse the final coefficients and hash them as one element
+    slice; returns (final, digest) on the host.  Poseidon2 sponges the
+    4*size words through the row-hash kernel, so one readback returns
+    both; the suites hashed on the host hash the read-back words there
+    (reference fri.rs:113-118)."""
     final = ntt.bit_reverse(coeffs).contiguous()
+    if not suite.on_card:
+        final = to_numpy(final)
+        return final, suite.hash_elem_slice(final.ravel())
     digest = kp2.hash_rows(final.reshape(-1, 1))[0]
-    return to_numpy(torch.cat([final.reshape(-1), digest]))
+    flat = to_numpy(torch.cat([final.reshape(-1), digest]))
+    return flat[:-8].reshape(tuple(coeffs.shape)), flat[-8:]
 
 
 def fri_prove(iop, final_poly_coeffs, inner):
@@ -54,9 +60,7 @@ def fri_prove(iop, final_poly_coeffs, inner):
             rnd = _ProveRound(iop, coeffs)
             rounds.append(rnd)
             coeffs = rnd.coeffs
-        flat = _final_and_digest(coeffs)
-        final = flat[:-8].reshape(tuple(coeffs.shape))
-        digest = flat[-8:]
+        final, digest = _final_and_digest(coeffs, iop.suite)
     iop.write_field_elems(final)
     iop.commit(digest)
 

@@ -13,6 +13,7 @@ import torch
 
 from ..convert import to_numpy
 from ..hal import torch_hal as hal
+from ..hash.suite import POSEIDON2
 
 
 def merkle_params(row_size: int, queries: int):
@@ -28,15 +29,17 @@ def merkle_params(row_size: int, queries: int):
 
 
 class MerkleTreeProver:
-    """matrix: (cols, rows) int32 device tensor; leaf r hashes column r."""
+    """matrix: (cols, rows) int32 device tensor; leaf r hashes column r
+    under `suite`."""
 
-    def __init__(self, matrix, queries: int = 50, layers=None):
+    def __init__(self, matrix, queries: int = 50, suite=POSEIDON2,
+                 layers=None):
         self.matrix = matrix
         self.cols, self.rows = matrix.shape
         self.num_layers, self.top_size = merkle_params(self.rows, queries)
         # layers[0] = leaves (rows, 8) ... layers[-1] = root (1, 8)
         self.layers = layers if layers is not None \
-            else hal.merkle_layers(matrix)
+            else hal.merkle_layers(matrix, suite)
         self._root = None
 
     @property

@@ -16,6 +16,7 @@ from .. import perf
 from ..convert import card, to_numpy
 from ..core import ntt
 from ..hal import torch_hal as hal
+from ..hash.suite import POSEIDON2
 from . import soundness
 from .fri import fri_prove
 from .merkle import MerkleTreeProver
@@ -39,19 +40,21 @@ class PolyGroup:
         self.merkle = MerkleTreeProver(evaluated, QUERIES, layers=layers)
 
     @staticmethod
-    def commit_witness(witness, device, encode: bool = False):
+    def commit_witness(witness, device, encode: bool = False,
+                       suite=POSEIDON2):
         """Group from a (count, cycles) witness (numpy u32 or int32 tensor)
         through the commit pipeline; encode=True takes standard-form
         words and Montgomery-encodes on the device."""
         return PolyGroup(*hal.commit_pipeline(witness, encode=encode,
-                                              device=device))
+                                              device=device,
+                                              suite=suite))
 
     @staticmethod
-    def from_coeffs(coeffs_br):
+    def from_coeffs(coeffs_br, suite=POSEIDON2):
         """Group from bit-reversed coefficients (no zk shift)."""
         evaluated = hal.expand_evaluate(coeffs_br, 2)
         return PolyGroup(ntt.bit_reverse(coeffs_br), evaluated,
-                         hal.merkle_layers(evaluated))
+                         hal.merkle_layers(evaluated, suite))
 
 
 class Prover:
@@ -81,7 +84,8 @@ class Prover:
         if self.groups[group_id] is not None:
             raise RuntimeError(f"group {group_id} already committed")
         with perf.scope(f"commit_group.{group_id}", sync=self.device):
-            pg = PolyGroup.commit_witness(witness, self.device, encode=encode)
+            pg = PolyGroup.commit_witness(witness, self.device, encode=encode,
+                                          suite=self.suite)
             self.groups[group_id] = pg
             pg.merkle.commit(self.iop)   # the root readback syncs the device
         return pg
@@ -106,8 +110,8 @@ class Prover:
         # iNTT the 4 planar polys; the bit-reversed coeffs read as 16 polys
         # of length cycles (prover.rs:143-178)
         with perf.scope("check_commit", sync=dev):
-            check_group = PolyGroup(*hal.check_pipeline(check_poly,
-                                                        CHECK_SIZE))
+            check_group = PolyGroup(*hal.check_pipeline(
+                check_poly, CHECK_SIZE, self.suite))
             check_group.merkle.commit(iop)
 
         # DEEP query point

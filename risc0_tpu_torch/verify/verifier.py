@@ -159,10 +159,10 @@ class _FriRoundVerifier:
 class Verifier:
     """reference: risc0/zkp/src/verify/mod.rs:160-492"""
 
-    def __init__(self, taps, suite, seal):
+    def __init__(self, taps, suite, seal, iop_cls=ReadIOP):
         self.taps = taps
         self.suite = suite
-        self.iop = ReadIOP(suite, seal)
+        self.iop = iop_cls(suite, seal)
         self.po2 = None
         self.tot_cycles = 0
         self.merkle_verifiers = [None] * taps.num_groups
@@ -340,24 +340,31 @@ def _scalar_ext(x_mont: int) -> np.ndarray:
     return out
 
 
-def verify(circuit, suite, seal, check_code):
+def verify(circuit, suite, seal, check_code, iop_cls=ReadIOP):
     """Full protocol entry (reference verify/mod.rs:500-563).
 
     circuit must provide: taps, CIRCUIT_INFO (bytes), OUTPUT_SIZE, MIX_SIZE,
     poly_ext(poly_mix, eval_u, out, mix) -> ext value.
-    check_code(po2, code_root) raises on mismatch.
+    check_code(po2, code_root) raises on mismatch.  `iop_cls` reads the
+    seal (a ReadIOP subclass may record what each read takes, as
+    ``groth16/seal_to_json.py`` does).
     """
     if len(seal) == 0:
         raise VerificationError("empty seal")
-    v = Verifier(circuit.taps, suite, seal)
-    v.commit_circuit_info(circuit.CIRCUIT_INFO)
-    out, po2 = v.read_slice_with_po2(circuit.OUTPUT_SIZE)
-    code_root = v.verify_group(REGISTER_GROUP_CODE)
-    check_code(po2, code_root)
-    v.verify_group(REGISTER_GROUP_DATA)
-    mix = v.read_rng(circuit.MIX_SIZE)
-    v.verify_group(REGISTER_GROUP_ACCUM)
-    v.verify_validity(
-        lambda poly_mix, eval_u: circuit.poly_ext(poly_mix, eval_u, out, mix))
+    v = Verifier(circuit.taps, suite, seal, iop_cls=iop_cls)
+    try:
+        v.commit_circuit_info(circuit.CIRCUIT_INFO)
+        out, po2 = v.read_slice_with_po2(circuit.OUTPUT_SIZE)
+        code_root = v.verify_group(REGISTER_GROUP_CODE)
+        check_code(po2, code_root)
+        v.verify_group(REGISTER_GROUP_DATA)
+        mix = v.read_rng(circuit.MIX_SIZE)
+        v.verify_group(REGISTER_GROUP_ACCUM)
+        v.verify_validity(lambda poly_mix, eval_u: circuit.poly_ext(
+            poly_mix, eval_u, out, mix))
+    except ValueError as e:
+        # a seal digest that the suite cannot read (Poseidon254 takes
+        # only canonical BN254 scalars)
+        raise VerificationError(f"malformed seal: {e}") from e
     v.iop.verify_complete()
     return out

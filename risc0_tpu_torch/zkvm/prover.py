@@ -5,15 +5,19 @@ prove/{mod,prover_impl,opts}.rs).
 ``ProverImpl`` executes a guest, proves every segment with the rv32im
 STARK prover, chains the claims into a CompositeReceipt and, for the
 succinct kind, compresses it: lifts, joins, and resolves the assumption
-receipts, the keccak coprocessor's union root among them.  It verifies
-the receipt before it returns it.  Everything runs on `device`, the card
-unless the caller names another.  The groth16 kind, PoVW, the dev-mode
-prover, identity_p254 and shrink_wrap wait for their slices (ROADMAP.md
-queue 1) and raise.
+receipts, the keccak coprocessor's union root among them.  The groth16
+kind re-proves that receipt under Poseidon254 (identity_p254) and wraps
+it in a BN254 Groth16 proof (shrink_wrap).  It verifies the receipt
+before it returns it.  The STARK proves run on `device`, the card unless
+the caller names another; the Groth16 prove runs on the host.  PoVW and
+the dev-mode prover wait for their slice (ROADMAP.md queue 1) and raise.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import subprocess
 from dataclasses import dataclass
 
 import numpy as np
@@ -22,7 +26,8 @@ from ..convert import card
 from . import recursion_driver
 from .claims import ExitCode
 from .exec import ExecutorEnv, ExecutorImpl, Session, resolve_segment
-from .receipt import (CompositeReceipt, InnerReceipt, Receipt,
+from .receipt import (CompositeReceipt, Groth16Receipt,
+                      Groth16ReceiptVerifierParameters, InnerReceipt, Receipt,
                       SegmentReceipt, VerifierContext, segment_claim,
                       session_segment_output)
 
@@ -41,8 +46,17 @@ class ProverOpts:
     `dev_mode` is the reference's switch to DevModeProver, which waits for
     ROADMAP.md queue 1: get_prover_server raises on it."""
 
-    receipt_kind: str = "composite"  # composite | succinct (groth16 raises)
+    receipt_kind: str = "composite"  # composite | succinct | groth16
     dev_mode: bool = False
+    # Groth16 prover of shrink_wrap.  None: the in-process prover
+    # (groth16/wrap.py: the stark_verify R1CS and a CRS made on first use
+    # and cached), unless RISC0_SNARK_PROVER names a shell command with
+    # the reference's contract (the stark_verify witness JSON on stdin; a
+    # 256-byte seal, {"seal": hex} or a snarkjs proof JSON on stdout, as
+    # groth16/src/prove/docker.rs runs rapidsnark).  "builtin" forces the
+    # in-process prover; a callable takes the witness JSON like the
+    # command.
+    snark_prover: object | None = None
 
 
 @dataclass
@@ -79,6 +93,7 @@ class ProverImpl(ProverServer):
         # assumption included (reference prover_impl.rs:98-114); resolve
         # removes them in compress
         output = session_segment_output(session)
+        g16_params = None
         receipts = []
         for i, seg in enumerate(session.segments):
             final = i == len(session.segments) - 1
@@ -93,12 +108,14 @@ class ProverImpl(ProverServer):
             inner = InnerReceipt("succinct",
                                  self.compress_composite(composite))
         elif self.opts.receipt_kind == "groth16":
-            raise _not_ported("the groth16 receipt kind")
+            inner = InnerReceipt("groth16", self.shrink_wrap(
+                self.compress_composite(composite)))
+            g16_params = self._groth16_params()
         else:
             raise ValueError(f"unknown receipt kind {self.opts.receipt_kind}")
         receipt = Receipt(inner, session.journal)
         # self-check before returning (reference prover_impl.rs:155-170)
-        receipt.verify_integrity(self._verifier_ctx())
+        receipt.verify_integrity(self._verifier_ctx(g16_params))
         return ProveInfo(receipt=receipt, session=session)
 
     def _assumption_receipts(self, session) -> list:
@@ -124,11 +141,33 @@ class ProverImpl(ProverServer):
                 out.append(r)
         return out
 
-    def _verifier_ctx(self) -> VerifierContext:
+    def _verifier_ctx(self, groth16_params=None) -> VerifierContext:
         from ..circuit.recursion.predicates import own_control_ids
 
         _ids, root = own_control_ids()
-        return VerifierContext(hashfn=HASHFN, control_root=root)
+        return VerifierContext(hashfn=HASHFN, control_root=root,
+                               groth16_params=groth16_params)
+
+    def _snark_command(self) -> str | None:
+        """The external Groth16 prover's shell command, if one is named."""
+        if self.opts.snark_prover is None:
+            return os.environ.get("RISC0_SNARK_PROVER") or None
+        return None
+
+    def _builtin_snark(self) -> bool:
+        """Whether shrink_wrap proves with the in-process Groth16 prover."""
+        return self.opts.snark_prover in (None, "builtin") \
+            and self._snark_command() is None
+
+    def _groth16_params(self):
+        """The verifier parameters of this prover's Groth16 receipts: the
+        in-process prover's own CRS key, else the defaults (the ceremony
+        key the external provers target)."""
+        if self._builtin_snark():
+            from ..groth16 import wrap as g16wrap
+
+            return g16wrap.verifier_parameters()
+        return None
 
     def compress_composite(self, composite):
         """CompositeReceipt -> SuccinctReceipt (reference
@@ -173,10 +212,56 @@ class ProverImpl(ProverServer):
         return recursion_driver.prove_keccak_request(request, self.device)
 
     def identity_p254(self, receipt):
-        raise _not_ported("identity_p254 (the poseidon254 suite)")
+        """Poseidon2 SuccinctReceipt -> Poseidon254 SuccinctReceipt, the
+        wrap's input (reference recursion/prove/mod.rs identity_p254)."""
+        return recursion_driver.identity_p254(receipt, self.device)
 
-    def shrink_wrap(self, receipt):
-        raise _not_ported("shrink_wrap (Groth16)")
+    def shrink_wrap(self, receipt) -> Groth16Receipt:
+        """SuccinctReceipt -> Groth16Receipt (reference prove/mod.rs
+        shrink_wrap and the r0vm ShrinkWrap task): identity_p254 on the
+        card, then a Groth16 proof of the stark_verify circuit over its
+        seal, by the in-process prover or the external one that
+        ProverOpts.snark_prover or RISC0_SNARK_PROVER names.  The
+        receipt is checked with the BN254 pairing verifier before it is
+        returned."""
+        from ..groth16.seal_to_json import to_json
+
+        p254 = self.identity_p254(receipt)
+        if self._builtin_snark():
+            from ..groth16 import wrap as g16wrap
+
+            g, params = g16wrap.wrap(p254)
+            g.verify_integrity(self._verifier_ctx(params))
+            return g
+        witness = to_json(np.asarray(p254.seal, np.uint32))
+        cmd = self._snark_command()
+        if cmd is not None:
+            r = subprocess.run(cmd, shell=True, input=witness.encode(),
+                               capture_output=True, check=False)
+            if r.returncode != 0:
+                raise RuntimeError(
+                    f"snark prover failed: {r.stderr[-500:]!r}")
+            out = json.loads(r.stdout)
+        else:
+            out = self.opts.snark_prover(witness)
+        g = Groth16Receipt(
+            seal=_groth16_seal(out), claim=p254.claim,
+            verifier_parameters=Groth16ReceiptVerifierParameters.default()
+            .digest())
+        g.verify_integrity(self._verifier_ctx())
+        return g
+
+
+def _groth16_seal(out) -> bytes:
+    """The 256-byte seal of an external prover's answer: raw bytes,
+    {"seal": hex}, or a snarkjs proof JSON (under "proof" or bare)."""
+    from ..groth16.verifier import proof_json_to_seal
+
+    if isinstance(out, (bytes, bytearray)):
+        return bytes(out)
+    if "seal" in out:
+        return bytes.fromhex(out["seal"])
+    return proof_json_to_seal(out.get("proof", out))
 
 
 def get_prover_server(opts: ProverOpts | None = None,

@@ -1,10 +1,11 @@
-"""Receipts: segment, composite and succinct containers, the top-level
-receipt, and their verification (counterpart of part of
+"""Receipts: segment, composite, succinct and Groth16 containers, the
+top-level receipt, and their verification (counterpart of
 ``risc0_tpu/zkvm/receipt.py``; reference risc0/zkvm/src/receipt.rs and
-receipt/{segment,composite,succinct,merkle}.rs).
+receipt/{segment,composite,succinct,groth16,merkle}.rs).
 
-Verification runs the port's host verifiers.  The Groth16 and fake
-receipts wait for their slices (ROADMAP.md queue 1).
+Verification runs the port's host verifiers: the STARK verifier under the
+receipt's hash suite, and the BN254 pairing check for Groth16.  The fake
+(dev-mode) receipt waits for its slice (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -29,11 +30,15 @@ class VerifierContext:
     succinct receipt must include its control ID in (default: the
     receipt's own); `inner_control_root` is the root the recursion program
     must echo in its output (default: `control_root`), as in
-    receipt/succinct.rs:229-260."""
+    receipt/succinct.rs:229-260.  A Poseidon254 receipt's program echoes
+    the Poseidon2 root of the receipt it wraps (succinct.rs:182)."""
 
     hashfn: str = "poseidon2"
     control_root: np.ndarray | None = None
     inner_control_root: np.ndarray | None = None
+    # Groth16 verifier parameters (reference receipt/groth16.rs:132-185);
+    # None: Groth16ReceiptVerifierParameters.default()
+    groth16_params: object | None = None
 
 
 def _check_hashfn(hashfn: str, ctx: VerifierContext):
@@ -173,14 +178,87 @@ class SuccinctReceipt:
                 raise ZkpError("control-ID inclusion proof invalid")
 
         try:
-            verify_recursion_seal(self.seal, check_code)
+            verify_recursion_seal(self.seal, check_code, suite=suite)
         except ZkpError as e:
             raise VerificationError(f"recursion seal invalid: {e}") from e
 
 
 @dataclass
+class Groth16ReceiptVerifierParameters:
+    """reference receipt/groth16.rs:132-185.  The default is the
+    repository's own allowed-control-IDs root and identity_p254 control
+    ID (the reference's ALLOWED_CONTROL_ROOT and BN254_IDENTITY_CONTROL_ID
+    counterparts) with the ceremony verifying key."""
+
+    control_root: np.ndarray
+    bn254_control_id: np.ndarray
+    verifying_key: object = None  # groth16.VerifyingKey; None: ceremony key
+
+    @staticmethod
+    def default():
+        from ..circuit.recursion.predicates import (identity_p254_control_id,
+                                                    own_control_ids)
+
+        _ids, root = own_control_ids()
+        return Groth16ReceiptVerifierParameters(
+            control_root=root, bn254_control_id=identity_p254_control_id())
+
+    def vk(self):
+        from ..groth16 import GROTH16_VERIFIER_KEY
+
+        return self.verifying_key or GROTH16_VERIFIER_KEY
+
+    def digest(self) -> np.ndarray:
+        from ..groth16.verifier import vk_digest
+        from .claims import tagged_struct
+
+        return tagged_struct(
+            "risc0.Groth16ReceiptVerifierParameters",
+            [self.control_root, self.bn254_control_id, vk_digest(self.vk())],
+            [])
+
+
+@dataclass
+class Groth16Receipt:
+    """SNARK-wrapped receipt (reference receipt/groth16.rs:39-129): a
+    256-byte BN254 Groth16 seal over the public inputs (control root,
+    claim digest, BN254 control ID)."""
+
+    seal: bytes
+    claim: object  # ReceiptClaim | MaybePruned
+    verifier_parameters: np.ndarray
+
+    def verify_integrity(self, ctx: VerifierContext):
+        from ..groth16 import Verifier
+
+        params = (ctx.groth16_params
+                  or Groth16ReceiptVerifierParameters.default())
+        if not np.array_equal(np.asarray(params.digest(), np.uint32),
+                              np.asarray(self.verifier_parameters,
+                                         np.uint32)):
+            raise VerificationError("groth16 verifier parameters mismatch")
+        try:
+            v = Verifier.from_seal(
+                bytes(self.seal), params.control_root, self.claim.digest(),
+                params.bn254_control_id, params.vk())
+        except ValueError as e:
+            raise VerificationError(f"groth16 seal format: {e}") from e
+        if not v.verify():
+            raise VerificationError("groth16 proof invalid")
+
+    def seal_calldata(self) -> bytes:
+        """On-chain seal: the bytes4 verifier selector, then the 256-byte
+        proof, as RiscZeroGroth16Verifier.verifyIntegrity expects
+        (``groth16/solidity.py``)."""
+        from ..groth16.solidity import seal_to_calldata
+
+        return seal_to_calldata(bytes(self.seal), self.verifier_parameters)
+
+
+@dataclass
 class InnerReceipt:
-    """The proof inside a Receipt: kind "composite" or "succinct"."""
+    """The proof inside a Receipt: kind "composite", "succinct" or
+    "groth16"."""
 
     kind: str
     value: object

@@ -1,7 +1,8 @@
 """Recursion driver: lift rv32im segment and keccak receipts, join,
-union and resolve them into one succinct receipt (counterpart of
-``risc0_tpu/zkvm/recursion_driver.py`` without its PoVW and identity_p254
-parts; reference risc0/zkvm/src/host/recursion/prove/mod.rs:73-260 and
+union and resolve them into one succinct receipt, and re-prove it under
+the Poseidon254 suite for the Groth16 wrap (counterpart of
+``risc0_tpu/zkvm/recursion_driver.py`` without its PoVW parts; reference
+risc0/zkvm/src/host/recursion/prove/mod.rs:73-392 and
 host/server/prove/prover_impl.rs).
 
 The predicate programs and the allowed-control-IDs set are the
@@ -17,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 
 from .. import field as F
-from ..circuit.recursion.predicates import load_own_program, own_control_ids
+from ..circuit.recursion.predicates import (identity_p254_control_id,
+                                            load_own_program, own_control_ids)
 from ..circuit.recursion.prove import (MerkleGroup, load_keccak_lift,
                                        prove_zkr, read_sha_halfs)
 from ..convert import card
@@ -102,6 +104,32 @@ def join(left: SuccinctReceipt, right: SuccinctReceipt, device="cuda",
                         claim=joined, device=device, **kw)
     if not np.array_equal(receipt_claim_digest(receipt), joined.digest()):
         raise VerificationError("join output claim digest mismatch")
+    return receipt
+
+
+def identity_p254(inner: SuccinctReceipt, device="cuda",
+                  **kw) -> SuccinctReceipt:
+    """Poseidon2 SuccinctReceipt -> Poseidon254 SuccinctReceipt, the input
+    of the stark-to-snark wrap (reference recursion/prove/mod.rs:355-392),
+    proved on `device`.  The identity predicate verifies the inner seal
+    in the VM against the Poseidon2 allowed root; the outer proof hashes
+    under Poseidon254, with the singleton identity_p254 control ID as its
+    allowed set."""
+    from ..hash.suite import POSEIDON254
+
+    device = card(device)
+    if inner.hashfn != "poseidon2":
+        raise VerificationError("identity_p254 requires a poseidon2 inner")
+    ids, leaves, root = _allowed()
+    tape = _words(root) + _proof_words(MerkleGroup(leaves), inner.control_id)
+    tape += _words(inner.seal)
+    p254_id = identity_p254_control_id()
+    receipt = prove_zkr(load_own_program("identity"), p254_id, [p254_id],
+                        tape, claim=inner.claim, suite=POSEIDON254,
+                        device=device, **kw)
+    if not np.array_equal(receipt_claim_digest(receipt),
+                          inner.claim.digest()):
+        raise VerificationError("identity_p254 output claim digest mismatch")
     return receipt
 
 

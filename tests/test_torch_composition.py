@@ -477,7 +477,7 @@ def test_prover_impl_succinct_on_stubs(record, monkeypatch, sessions,
     monkeypatch.setattr(kverify, "verify_keccak_seal",
                         lambda s: np.asarray(s[:17]))
     monkeypatch.setattr(rec_circuit, "verify_recursion_seal",
-                        lambda seal, check_code: None)
+                        lambda seal, check_code, suite=None: None)
     info = ProverImpl(ProverOpts(receipt_kind="succinct"),
                       device="cpu").prove_session(session)
     info.receipt.verify(image_id)
@@ -520,15 +520,22 @@ def test_prover_impl_composite_matches_jax(monkeypatch):
 
 
 def test_what_is_not_ported_raises():
+    """The dev-mode prover and PoVW wait for ROADMAP.md queue 1 and
+    raise; the groth16 kind, identity_p254 and shrink_wrap are served
+    (tests/test_torch_snark.py), and identity_p254 takes only a
+    Poseidon2 receipt."""
     from risc0_tpu_torch.zkvm.prover import (ProverImpl, ProverOpts,
                                              get_prover_server)
+    from risc0_tpu_torch.zkvm.receipt import VerificationError
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         get_prover_server(ProverOpts(dev_mode=True), device="cpu")
     prover = ProverImpl(ProverOpts(receipt_kind="groth16"), device="cpu")
-    for call in (lambda: prover.identity_p254(None),
-                 lambda: prover.shrink_wrap(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    p254 = _golden("torch", "recursion_seal_lift14")
+    p254.hashfn = "poseidon254"
+    for call in (lambda: prover.identity_p254(p254),
+                 lambda: prover.shrink_wrap(p254)):
+        with pytest.raises(VerificationError, match="poseidon2 inner"):
             call()
 
     class PovwSession:

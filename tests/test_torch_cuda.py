@@ -298,3 +298,49 @@ def test_keccak_seal_on_the_card_is_the_jax_seal(dev):
     assert np.array_equal(seal, np.load(os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "data",
         "keccak_seal_po2_14.npy")))
+
+
+def test_p254_merkle_and_seal_on_the_card(dev):
+    """The host-suite Merkle path from a card tensor (one readback, the
+    host hashes, one upload back to the card) equals it from the same
+    words on the CPU, and the
+    fib seal proved on the card under Poseidon254 is the JAX package's
+    (tests/data/fib_seal_po2_6_poseidon254.npy)."""
+    import os
+
+    from risc0_tpu_torch.circuit import fib
+    from risc0_tpu_torch.hal import torch_hal as hal
+    from risc0_tpu_torch.hash.suite import POSEIDON254
+
+    m = _words(np.random.default_rng(8), (23, 1 << 12), dev)
+    got = hal.merkle_layers(m, POSEIDON254)
+    want = hal.merkle_layers(m.cpu(), POSEIDON254)
+    assert len(got) == 13
+    assert all(g.device == m.device for g in got)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    seal = fib.prove(po2=6, seed=0, device=dev, suite=POSEIDON254)
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    assert np.array_equal(
+        seal, np.load(os.path.join(data, "fib_seal_po2_6_poseidon254.npy")))
+
+
+@pytest.mark.parametrize("name", ["sha256", "poseidon254", "blake2b"])
+def test_segment_proves_and_verifies_under_each_suite(dev, loop_segment,
+                                                      name):
+    """prove_segment under a host-hashed suite on the card: its seal
+    verifies under that suite, not under Poseidon2, and a flipped word is
+    rejected."""
+    from risc0_tpu_torch.circuit.rv32im.prove import prove_segment
+    from risc0_tpu_torch.circuit.rv32im.verify import verify_rv32im_seal
+    from risc0_tpu_torch.hash.suite import get_suite
+    from risc0_tpu_torch.verify.verifier import VerificationError
+
+    suite = get_suite(name)
+    seal = prove_segment(loop_segment, rand_z=(1, 2, 3, 4), device=dev,
+                         suite=suite)
+    assert len(verify_rv32im_seal(seal, suite)) == 90
+    bad = np.array(seal)
+    bad[len(bad) // 2] ^= 1
+    for s, st in ((bad, suite), (seal, None)):
+        with pytest.raises(VerificationError):
+            verify_rv32im_seal(s, st)

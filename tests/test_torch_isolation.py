@@ -58,7 +58,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "zkvm.receipt", "zkvm.recursion_driver",
                  "circuit.keccak.circuit", "circuit.keccak.witgen",
                  "circuit.keccak.prove", "circuit.keccak.verify",
-                 "zkvm.guest", "zkvm.prover", "keccak_guest"):
+                 "zkvm.guest", "zkvm.prover", "keccak_guest",
+                 "hash.sha256", "hash.poseidon254", "hash.blake2b",
+                 "hash.suite", "groth16", "groth16.bn254", "groth16.native",
+                 "groth16.verifier", "groth16.seal_to_json", "groth16.r1cs",
+                 "groth16.gadgets", "groth16.stark_verify", "groth16.prove",
+                 "groth16.wrap", "groth16.solidity"):
         assert "risc0_tpu_torch." + name in out["imported"]
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
@@ -84,6 +89,11 @@ _ENTRY_POINTS = {
     "fib.prove": "fib.prove(po2=6, seed=0)",
     "fib.code_root": "fib.code_root(6)",
     "fib.verify": "fib.verify(np.zeros(4, np.uint32))",
+    "fib.prove (sha256)": "fib.prove(po2=6, seed=0, suite=SHA256)",
+    "prove_program (poseidon254)":
+        "rec.prove_program(None, [], suite=POSEIDON254)",
+    "Program.control_id (poseidon254)":
+        "rec.load_keccak_lift(14).control_id(suite=POSEIDON254)",
     "Prover": "Prover(POSEIDON2, fib.TAPS)",
     "commit_pipeline": "hal.commit_pipeline(np.zeros((1, 8), np.uint32))",
     "commit_pipeline_chunked":
@@ -105,6 +115,7 @@ _ENTRY_POINTS = {
     "union": "drv.union(None, None)",
     "resolve": "drv.resolve(None, None)",
     "keccak_union_root": "drv.keccak_union_root([{'input': [[0] * 25]}])",
+    "identity_p254": "drv.identity_p254(None)",
     "ProverImpl": "ProverImpl()",
     "default_prover": "default_prover()",
 }
@@ -119,7 +130,7 @@ from risc0_tpu_torch.circuit.keccak import prove as keccak
 from risc0_tpu_torch.circuit.recursion import prove as rec
 from risc0_tpu_torch.circuit.rv32im import prove as rv
 from risc0_tpu_torch.hal import torch_hal as hal
-from risc0_tpu_torch.hash.suite import POSEIDON2
+from risc0_tpu_torch.hash.suite import POSEIDON2, POSEIDON254, SHA256
 from risc0_tpu_torch.prove.prover import Prover
 from risc0_tpu_torch.zkvm import recursion_driver as drv
 from risc0_tpu_torch.zkvm.prover import ProverImpl, default_prover

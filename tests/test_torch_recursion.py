@@ -14,8 +14,8 @@
     seal, and on a tampered one;
   * the three golden succinct receipts of tests/test_golden.py verify in the
     port, and corrupted copies are rejected;
-  * the allowed-control-IDs set, decode_claim, the suites and the errors of
-    what is not ported yet, and the session claim of a keccak guest.
+  * the allowed-control-IDs set, decode_claim, the suites by name, and the
+    session claim of a keccak guest.
 
 Field arithmetic is exact, so every comparison is bit for bit.  A lift of
 the po2 14 seal on the CPU and the keccak_lift_14 control ID at po2 18 are
@@ -365,20 +365,27 @@ def test_flipped_opening_word_is_rejected_by_the_stark():
         dataclasses.replace(receipt, seal=bad).verify_integrity(ctx)
 
 
-# -- what is not ported raises --------------------------------------------------
+# -- the suites by name --------------------------------------------------
 
-def test_only_the_poseidon2_suite_is_served():
-    from risc0_tpu_torch.hash.suite import POSEIDON2, get_suite
+def test_every_suite_is_served_by_name():
+    """get_suite serves the reference's four suites by every name the JAX
+    package accepts, and raises for an unknown one: a receipt's hashfn
+    never gets another suite in its place."""
+    from risc0_tpu_torch.hash.suite import (BLAKE2B, POSEIDON2, POSEIDON254,
+                                            SHA256, get_suite)
 
-    assert get_suite("poseidon2") is POSEIDON2
-    for name in ("sha256", "poseidon254", "blake2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            get_suite(name)
+    for names, suite in ((("poseidon2",), POSEIDON2),
+                         (("sha256", "sha-256"), SHA256),
+                         (("poseidon254", "poseidon_254"), POSEIDON254),
+                         (("blake2b",), BLAKE2B)):
+        for name in names:
+            assert get_suite(name) is suite
     with pytest.raises(ValueError):
         get_suite("md5")
+    # a Poseidon2 seal read as a Poseidon254 receipt is rejected
     receipt, ctx = _golden("recursion_seal_lift14")
     receipt = dataclasses.replace(receipt, hashfn="poseidon254")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(VerificationError):
         receipt.verify_integrity(VerifierContext(
             hashfn="poseidon254", control_root=ctx.control_root))
 
