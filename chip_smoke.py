@@ -76,13 +76,34 @@ non-zero:
                Groth16 setup, prove and verify on the host.  The full
                Groth16 wrap is scripts/torch_groth16_wrap.py
 
+ 10. povw    - proof of verifiable work: ProverImpl(succinct).prove of a
+               two-segment loop session at segment po2 16 (the last
+               segment po2 15) with a PoVW job id: lift_rv32im_povw_16,
+               lift_rv32im_povw_15 and join_unwrap_povw on the card; each
+               segment seal's Work must be its job nonce, the receipt must
+               pass Receipt.verify(image_id) with a flipped seal word
+               rejected, and ProveInfo.work must be session_work.  Then
+               lift_povw of a one-segment po2 14 session of the next job
+               (its claim WorkClaim(decode_claim, decode_work), verified)
+               and WorkLogUpdateProver.prove_update of it through the
+               log-builder guest proved with ProverImpl(succinct): the
+               guest's segment, its lift and the resolve of the work
+               receipt; the journal receipt must pass Receipt.verify of
+               the guest's image ID and its journal equal the host's
+               transition.  Per prove: wall time, seal words and SHA-256,
+               stage table, peak device memory; each kernel's launch count
+               over both (every count > 0).  Then the control IDs of
+               join_povw, unwrap_povw, resolve_povw and
+               resolve_unwrap_povw committed on the card
+
 Phase 3 also holds the kernels at the recursion prove's shapes (12, 23
 and 128 columns at 2^18 rows, the check group, trees of 2^20 leaves, its
 FRI rounds) and at the keccak prove's (1096 columns at 2^17 rows and at
 2^19 for the leaves, the commit's chunks of 32 and 8 columns, a tree of
 2^19 leaves).  The last two lines are a JSON object {"kernels": [...]}
 (launches: phase 6's prove; launches_recursion: phase 7's;
-launches_composition: phase 8's; launches_snark: phase 9's identity_p254)
+launches_composition: phase 8's; launches_snark: phase 9's identity_p254;
+launches_povw: phase 10's proves)
 and {"ok": true, "device": {...}}.
 Imports nothing of jax.
 """
@@ -894,10 +915,197 @@ def phase_snark(dev, lifted, counters, log):
     return launches
 
 
+POVW_LOG = 0x5EED_C0FFEE  # the work log's 160-bit id
+POVW_JOB = 7
+
+
+def _print_segment_prove(prefix, rec):
+    seal = np.asarray(rec["out"], np.uint32)
+    print(f"{prefix}: segment of po2 {int(seal[91])} proved in "
+          f"{rec['s']:.3f} s, seal {len(seal)} words, SHA-256 "
+          f"{hashlib.sha256(seal.tobytes()).hexdigest()}, peak device "
+          f"memory {rec['peak'] / 2**30:.2f} GiB; stages (s, calls): "
+          f"{_stage_line(rec['stages'])}", flush=True)
+
+
+def phase_povw(dev, counters, rec_log):
+    """Proof of verifiable work on the card: ProverImpl's PoVW branch over
+    a two-segment session, lift_povw of a one-segment session and the
+    work-log update proved through the log-builder guest; then the control
+    IDs of the PoVW programs not proved here.  Returns {kernel: launches
+    over the two proves}."""
+    from risc0_tpu_torch import loop_guest
+    from risc0_tpu_torch.circuit.recursion.predicates import (
+        load_own_program, own_control_ids)
+    from risc0_tpu_torch.circuit.rv32im import prove as rv_prove
+    from risc0_tpu_torch.circuit.rv32im.claim import decode_claim, decode_work
+    from risc0_tpu_torch.zkvm.exec import ExecutorEnv, ExecutorImpl
+    from risc0_tpu_torch.zkvm.povw import PovwJobId, WorkClaim, session_work
+    from risc0_tpu_torch.zkvm.povw_guest import LogBuilderGuestProver
+    from risc0_tpu_torch.zkvm.povw_updater import WorkLogUpdateProver
+    from risc0_tpu_torch.zkvm.prover import ProverImpl, ProverOpts
+    from risc0_tpu_torch.zkvm.receipt import (SegmentReceipt,
+                                              VerificationError,
+                                              VerifierContext)
+    from risc0_tpu_torch.zkvm.recursion_driver import lift_povw
+
+    t_phase = time.perf_counter()
+    ids, root = own_control_ids()
+    ctx = VerifierContext(control_root=root)
+    elf = loop_guest.elf()
+    seg_log = []
+    _watch(rv_prove, "prove_segment_core", seg_log)
+
+    # (a) the PoVW branch of ProverImpl(succinct) over two segments
+    job = PovwJobId(log=POVW_LOG, job=POVW_JOB)
+    env = loop_guest.session_env(REC_SESSION_PO2, 2, job)
+    image_id = ExecutorImpl(env, elf).compute_image_id()
+    for fn in counters:
+        fn.launches = 0
+    n_rec = len(rec_log)
+    torch.cuda.reset_peak_memory_stats()
+    secs, info = _wall_s(lambda: ProverImpl(
+        ProverOpts(receipt_kind="succinct"), device=dev).prove(env, elf))
+    session = info.session
+    po2s = [s.po2 for s in session.segments]
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [r["peak"] for r in seg_log + rec_log[n_rec:]])
+    print(f"povw: ProverImpl(succinct).prove of a {len(po2s)}-segment loop "
+          f"session (segments of po2 {po2s}, job {job.job} of log "
+          f"{POVW_LOG:#x}) {secs:.3f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    if po2s != [REC_SESSION_PO2, REC_SESSION_PO2 - 1]:
+        raise AssertionError(f"the session's segments are of po2 {po2s}")
+    for rec in seg_log:
+        _print_segment_prove("povw", rec)
+    names = [f"lift_rv32im_povw_{p} (segment {i})"
+             for i, p in enumerate(po2s)] + ["join_unwrap_povw"]
+    for name, rec in zip(names, rec_log[n_rec:]):
+        _print_recursion_prove(name, rec)
+    if len(rec_log) - n_rec != len(names):
+        raise AssertionError(f"{len(rec_log) - n_rec} recursion proves, "
+                             f"expected {len(names)}")
+    works = [decode_work(rec["out"]) for rec in seg_log]
+    same = [(w.nonce_min, w.nonce_max) == (job.nonce(i), job.nonce(i))
+            for i, w in enumerate(works)]
+    print(f"povw: decode_work of each segment seal == job.nonce(i): {same}",
+          flush=True)
+    if not all(same):
+        raise AssertionError("a segment seal carries another nonce")
+    t0 = time.perf_counter()
+    info.receipt.verify(image_id)
+    verify_s = time.perf_counter() - t0
+    want = session_work(session, job)
+    same = (info.work == want and want.nonce_min == job.nonce(0)
+            and want.nonce_max == job.nonce(1)
+            and want.value == (1 << 16) + (1 << 15))
+    print(f"povw: receipt.verify(image_id) passed in {verify_s:.2f} s; "
+          f"info.work == session_work(session, job) (nonces 0..1, value "
+          f"{info.work.value}): {same}", flush=True)
+    if not same:
+        raise AssertionError("ProveInfo.work is not the session's work")
+    succinct = info.receipt.inner.value
+    bad = np.array(succinct.seal)
+    bad[len(bad) // 2] ^= 1
+    try:
+        dataclasses.replace(succinct, seal=bad).verify_integrity(ctx)
+    except VerificationError as e:
+        rejected = str(e)
+    else:
+        raise AssertionError("a corrupted succinct receipt was accepted")
+    print(f"povw: flipped seal word rejected ({rejected})", flush=True)
+
+    # (b) lift_povw of a po2 14 segment, then the work-log update proved
+    # through the log-builder guest
+    job_b = PovwJobId(log=POVW_LOG, job=POVW_JOB + 1)
+    env_b = ExecutorEnv(segment_po2=16, povw_job_id=job_b).write_slice(
+        (100).to_bytes(4, "little"))
+    (seg,) = ExecutorImpl(env_b, elf).run().segments
+    if seg.po2 != 14:
+        raise AssertionError(f"the one-segment session is of po2 {seg.po2}")
+    n_seg, n_rec = len(seg_log), len(rec_log)
+    seal = rv_prove.prove_segment(seg, device=dev)
+    _print_segment_prove("povw", seg_log[n_seg])
+    sr = SegmentReceipt(seal=seal, index=0, hashfn="poseidon2",
+                        claim=decode_claim(seal))
+    work_receipt = lift_povw(sr, device=dev, rng=np.random.default_rng(8))
+    _print_recursion_prove("lift_rv32im_povw_14", rec_log[n_rec])
+    want = WorkClaim(decode_claim(seal), decode_work(seal))
+    t0 = time.perf_counter()
+    work_receipt.verify_integrity(ctx)
+    verify_s = time.perf_counter() - t0
+    same = (np.array_equal(work_receipt.claim.digest(), want.digest())
+            and want.work.nonce_min == job_b.nonce(0)
+            and want.work.value == 1 << 14)
+    print(f"povw: lift_povw receipt verified in {verify_s:.2f} s; claim == "
+          f"WorkClaim(decode_claim, decode_work) (nonce job.nonce(0), "
+          f"value 2^14): {same}", flush=True)
+    if not same:
+        raise AssertionError("the lift_povw claim is not the seal's")
+
+    guest = LogBuilderGuestProver(prover=ProverImpl(
+        ProverOpts(receipt_kind="succinct"), device=dev))
+    updater = WorkLogUpdateProver(log_id=POVW_LOG, journal_prover=guest,
+                                  device=dev)
+    n_seg, n_rec = len(seg_log), len(rec_log)
+    secs, (journal, receipt) = _wall_s(
+        lambda: updater.prove_update([work_receipt]))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"povw: prove_update through the log-builder guest {secs:.3f} s "
+          f"(the work receipt's verify, the guest's execution, "
+          f"{len(seg_log) - n_seg} segment, {len(rec_log) - n_rec} "
+          f"recursion proves and the self-checks)", flush=True)
+    for rec in seg_log[n_seg:]:
+        _print_segment_prove("povw: log-builder guest", rec)
+    guest_po2s = [int(np.asarray(r["out"])[91]) for r in seg_log[n_seg:]]
+    names = ([f"lift_rv32im_{p} (guest segment {i})"
+              for i, p in enumerate(guest_po2s)]
+             + ["join"] * (len(guest_po2s) - 1) + ["resolve"])
+    for name, rec in zip(names, rec_log[n_rec:]):
+        _print_recursion_prove(name, rec)
+    if len(rec_log) - n_rec != len(names):
+        raise AssertionError(f"{len(rec_log) - n_rec} recursion proves, "
+                             f"expected {len(names)}")
+    t0 = time.perf_counter()
+    receipt.verify(guest.image_id())
+    verify_s = time.perf_counter() - t0
+    same = (receipt.inner.kind == "succinct"
+            and journal.update_value == 1 << 14
+            and journal.updated_commit == updater.work_log.commit()
+            and journal.work_log_id == POVW_LOG)
+    print(f"povw: journal receipt ({receipt.inner.kind}) passed "
+          f"Receipt.verify(guest image ID) in {verify_s:.2f} s; journal "
+          f"update_value {journal.update_value} == 2^14 and updated_commit "
+          f"== the work log's commit: {same}", flush=True)
+    if not same:
+        raise AssertionError("the log-builder journal is not the host's "
+                             "transition")
+    print(f"povw: launches {json.dumps(launches)}", flush=True)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the PoVW proves: "
+                             f"{missing}")
+
+    # (c) the PoVW programs this phase does not prove
+    t0 = time.perf_counter()
+    for name in ("join_povw", "unwrap_povw", "resolve_povw",
+                 "resolve_unwrap_povw"):
+        same = np.array_equal(load_own_program(name).control_id(dev),
+                              ids[name])
+        print(f"povw: {name} control ID == own_control_ids(): {same}",
+              flush=True)
+        if not same:
+            raise AssertionError(f"{name} control ID differs")
+    print(f"povw: control IDs in {time.perf_counter() - t0:.2f} s; phase 10 "
+          f"in {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from risc0_tpu_torch.core import ntt as ntt_mod
     from risc0_tpu_torch.hal.cuda import build
@@ -938,6 +1146,7 @@ def main() -> int:
     launches_rec, lifted = phase_recursion(dev, seal, counters, rec_log)
     launches_comp = phase_composition(dev, counters, rec_log)
     launches_snark = phase_snark(dev, lifted, counters, rec_log)
+    launches_povw = phase_povw(dev, counters, rec_log)
 
     meta = {
         "hash_rows": ("poseidon2.cu", "risc0_tpu/hal/pallas/poseidon2.py:121"),
@@ -951,12 +1160,15 @@ def main() -> int:
         "launches": launches[name], "launches_recursion": launches_rec[name],
         "launches_composition": launches_comp[name],
         "launches_snark": launches_snark[name],
+        "launches_povw": launches_povw[name],
         "max_abs_err": rec[name]["max_abs_err"],
         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
         "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],
         "library_ms": None,  # no PyTorch call computes these functions
         "shape": rec[name]["shape"],
     } for name, (src, replaces) in meta.items()]
+    print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

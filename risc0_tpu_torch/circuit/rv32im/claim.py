@@ -1,5 +1,6 @@
-"""Decode the ReceiptClaim of an rv32im segment seal from its globals
-(counterpart of ``decode_claim`` in ``risc0_tpu/circuit/rv32im/claim.py``).
+"""Decode the ReceiptClaim and the PoVW Work record of an rv32im segment
+seal from its globals (counterpart of ``decode_claim`` and ``decode_work``
+in ``risc0_tpu/circuit/rv32im/claim.py``).
 
 Reference: risc0/circuit/rv32im/src/lib.rs:116-177 (Rv32imV2Claim::decode),
 risc0/zkvm/src/claim/receipt.rs:154-190 (decode_from_seal_v2) and
@@ -14,6 +15,7 @@ import numpy as np
 
 from ... import field as F
 from ...zkvm.claims import ExitCode, MaybePruned, ReceiptClaim, SystemState
+from ...zkvm.povw import PovwNonce, Work
 from ..layout import rv32im_global_layout
 from .circuit import OUTPUT_SIZE
 from .verify import RV32IM_SEAL_VERSION
@@ -60,3 +62,22 @@ def decode_claim(seal) -> ReceiptClaim:
         input=MaybePruned.from_digest(input_digest),
         output=output,
     )
+
+
+def decode_work(seal) -> Work:
+    """The PoVW Work record that lift_rv32im_povw_{po2} emits for this
+    seal: the one nonce of the povw_nonce globals as its range, and
+    value = cycles proved = 1 << po2 (reference recursion/prove/
+    zkr.rs:70-76)."""
+    seal = np.asarray(seal, np.uint32)
+    if seal[0] != RV32IM_SEAL_VERSION:
+        raise ValueError("seal version mismatch")
+    g = F.decode_np(seal[1 : 1 + OUTPUT_SIZE])
+    po2 = int(seal[1 + OUTPUT_SIZE])
+    halfs = []
+    for pair in rv32im_global_layout().povw_nonce.values:
+        halfs.extend([pair.low.read(g), pair.high.read(g)])
+    if any(h >= 1 << 16 for h in halfs):
+        raise ValueError("nonce short out of range")
+    nonce = PovwNonce.from_u16s(halfs)
+    return Work(nonce_min=nonce, nonce_max=nonce, value=1 << po2)

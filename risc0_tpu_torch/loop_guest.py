@@ -31,23 +31,34 @@ def count_for_po2(po2: int) -> int:
 _SEGMENT_OVERHEAD = 31_000
 
 
-def _run(po2: int, count: int):
+def elf() -> bytes:
     with open(ELF, "rb") as f:
-        elf = f.read()
-    env = ExecutorEnv(segment_po2=po2).write_slice(count.to_bytes(4, "little"))
-    return ExecutorImpl(env, elf).run()
+        return f.read()
+
+
+def _env(po2: int, count: int, povw_job_id=None) -> ExecutorEnv:
+    return ExecutorEnv(segment_po2=po2, povw_job_id=povw_job_id).write_slice(
+        count.to_bytes(4, "little"))
 
 
 def segment(po2: int):
     """Execute the loop guest at segment po2 `po2`; its first segment."""
-    return _run(po2, count_for_po2(po2)).segments[0]
+    session = ExecutorImpl(_env(po2, count_for_po2(po2)), elf()).run()
+    return session.segments[0]
 
 
-def session(po2: int, segments: int):
-    """Execute the loop guest sized to split into `segments` segments of
-    po2 `po2`: 0.70 + 0.95 * (segments - 1) segments' worth of loop
+def session_env(po2: int, segments: int, povw_job_id=None) -> ExecutorEnv:
+    """The env that splits the loop guest into `segments` segments of po2
+    `po2`: 0.70 + 0.95 * (segments - 1) segments' worth of loop
     iterations (the fill of scripts/record_succinct20.py), counted in the
     cycles a segment leaves the guest, which at po2 16 are about half of
-    its 2^16."""
+    its 2^16.  With `povw_job_id` (a zkvm.povw.PovwJobId) segment i
+    carries the PoVW nonce job.nonce(i)."""
     room = (1 << po2) - _SEGMENT_OVERHEAD
-    return _run(po2, _count((0.70 + 0.95 * (segments - 1)) * room))
+    return _env(po2, _count((0.70 + 0.95 * (segments - 1)) * room),
+                povw_job_id)
+
+
+def session(po2: int, segments: int, povw_job_id=None):
+    """Execute the loop guest in the env of ``session_env``."""
+    return ExecutorImpl(session_env(po2, segments, povw_job_id), elf()).run()

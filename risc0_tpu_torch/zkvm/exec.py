@@ -103,10 +103,11 @@ class ExecutorEnv:
         self.input += len(payload).to_bytes(4, "little") + bytes(payload)
         return self
 
-    def add_assumption(self, receipt) -> "ExecutorEnv":
+    def add_assumption(self, receipt, control_root=None) -> "ExecutorEnv":
         """Register an assumption receipt for guest env::verify
         (reference host/client/env.rs add_assumption).  Accepts anything
-        with claim_digest()/claim; the control root defaults to zero
+        with claim_digest()/claim.  The guest names it by (claim digest,
+        control root): `control_root`, else the receipt's own, else zero
         (meaning "same verifier context" per reference Assumption docs)."""
         import numpy as np
 
@@ -119,7 +120,8 @@ class ExecutorEnv:
                                np.uint32)
         else:
             claim = np.asarray(receipt, np.uint32)
-        root = getattr(receipt, "control_root", None)
+        root = (getattr(receipt, "control_root", None)
+                if control_root is None else control_root)
         root = (np.zeros(8, np.uint32) if root is None
                 else np.asarray(root, np.uint32))
         self.assumptions[(claim.tobytes(), root.tobytes())] = receipt

@@ -5,12 +5,14 @@ prove/{mod,prover_impl,opts}.rs).
 ``ProverImpl`` executes a guest, proves every segment with the rv32im
 STARK prover, chains the claims into a CompositeReceipt and, for the
 succinct kind, compresses it: lifts, joins, and resolves the assumption
-receipts, the keccak coprocessor's union root among them.  The groth16
-kind re-proves that receipt under Poseidon254 (identity_p254) and wraps
-it in a BN254 Groth16 proof (shrink_wrap).  It verifies the receipt
-before it returns it.  The STARK proves run on `device`, the card unless
-the caller names another; the Groth16 prove runs on the host.  PoVW and
-the dev-mode prover wait for their slice (ROADMAP.md queue 1) and raise.
+receipts, the keccak coprocessor's union root among them.  A session
+with a PoVW job id compresses through the WorkClaim programs, which
+prove its Work (ProveInfo.work).  The groth16 kind re-proves that
+receipt under Poseidon254 (identity_p254) and wraps it in a BN254
+Groth16 proof (shrink_wrap).  It verifies the receipt before it returns
+it.  The STARK proves run on `device`, the card unless the caller names
+another; the Groth16 prove runs on the host.  The dev-mode prover waits
+for its slice (ROADMAP.md queue 1) and raises.
 """
 
 from __future__ import annotations
@@ -63,6 +65,10 @@ class ProverOpts:
 class ProveInfo:
     receipt: Receipt
     session: Session
+    # the PoVW Work when the env carried a povw_job_id (reference
+    # prover_impl.rs work claims): proved by the succinct kind's WorkClaim
+    # programs, counted on the host for the other kinds
+    work: object | None = None
 
 
 class ProverServer:
@@ -85,8 +91,6 @@ class ProverImpl(ProverServer):
         self.opts = opts or ProverOpts()
 
     def prove_session(self, session: Session) -> ProveInfo:
-        if getattr(session, "povw_job_id", None) is not None:
-            raise _not_ported("PoVW proving")
         kind, *rest = session.exit_code
         session_exit = ExitCode(kind, rest[0] if rest else 0)
         # the final segment claims the output the guest committed, every
@@ -102,11 +106,19 @@ class ProverImpl(ProverServer):
         composite = CompositeReceipt(
             segments=receipts,
             assumption_receipts=self._assumption_receipts(session))
+        work = _session_work(session)
         if self.opts.receipt_kind == "composite":
             inner = InnerReceipt("composite", composite)
         elif self.opts.receipt_kind == "succinct":
-            inner = InnerReceipt("succinct",
-                                 self.compress_composite(composite))
+            if work is not None:
+                # lift_povw and join_povw thread the segment nonces
+                # through WorkClaims; the last merge unwraps to the
+                # session claim and proves the total Work
+                succinct, work = recursion_driver.compress_composite_povw(
+                    composite, self.device)
+            else:
+                succinct = self.compress_composite(composite)
+            inner = InnerReceipt("succinct", succinct)
         elif self.opts.receipt_kind == "groth16":
             inner = InnerReceipt("groth16", self.shrink_wrap(
                 self.compress_composite(composite)))
@@ -116,7 +128,7 @@ class ProverImpl(ProverServer):
         receipt = Receipt(inner, session.journal)
         # self-check before returning (reference prover_impl.rs:155-170)
         receipt.verify_integrity(self._verifier_ctx(g16_params))
-        return ProveInfo(receipt=receipt, session=session)
+        return ProveInfo(receipt=receipt, session=session, work=work)
 
     def _assumption_receipts(self, session) -> list:
         """One receipt per assumptions_used entry, head first (reference
@@ -145,7 +157,8 @@ class ProverImpl(ProverServer):
         from ..circuit.recursion.predicates import own_control_ids
 
         _ids, root = own_control_ids()
-        return VerifierContext(hashfn=HASHFN, control_root=root,
+        return VerifierContext(hashfn=HASHFN, dev_mode=False,
+                               control_root=root,
                                groth16_params=groth16_params)
 
     def _snark_command(self) -> str | None:
@@ -203,6 +216,20 @@ class ProverImpl(ProverServer):
 
     def resolve(self, conditional, assumption):
         return recursion_driver.resolve(conditional, assumption, self.device)
+
+    def lift_povw(self, segment_receipt):
+        """The program reads the Work from the seal's globals."""
+        return recursion_driver.lift_povw(segment_receipt, self.device)
+
+    def join_povw(self, a, b, unwrap=False):
+        return recursion_driver.join_povw(a, b, unwrap, self.device)
+
+    def unwrap_povw(self, inner):
+        return recursion_driver.unwrap_povw(inner, self.device)
+
+    def resolve_povw(self, conditional, assumption, unwrap=False):
+        return recursion_driver.resolve_povw(conditional, assumption, unwrap,
+                                             self.device)
 
     def union(self, a, b):
         return recursion_driver.union(a, b, self.device)
@@ -262,6 +289,15 @@ def _groth16_seal(out) -> bytes:
     if "seal" in out:
         return bytes.fromhex(out["seal"])
     return proof_json_to_seal(out.get("proof", out))
+
+
+def _session_work(session):
+    """The session's Work, one nonce a segment, or None without PoVW."""
+    if getattr(session, "povw_job_id", None) is None:
+        return None
+    from .povw import session_work
+
+    return session_work(session, session.povw_job_id)
 
 
 def get_prover_server(opts: ProverOpts | None = None,

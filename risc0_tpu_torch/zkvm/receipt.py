@@ -4,12 +4,13 @@ top-level receipt, and their verification (counterpart of
 receipt/{segment,composite,succinct,groth16,merkle}.rs).
 
 Verification runs the port's host verifiers: the STARK verifier under the
-receipt's hash suite, and the BN254 pairing check for Groth16.  The fake
-(dev-mode) receipt waits for its slice (ROADMAP.md queue 1).
+receipt's hash suite, and the BN254 pairing check for Groth16.  A fake
+(dev-mode) receipt proves nothing and verifies only in a dev-mode context.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -23,6 +24,11 @@ class VerificationError(Exception):
     pass
 
 
+def is_dev_mode() -> bool:
+    v = os.environ.get("RISC0_DEV_MODE", "")
+    return v.lower() not in ("", "0", "false", "no")
+
+
 @dataclass
 class VerifierContext:
     """reference receipt.rs:888-1008, the parameters of the receipts
@@ -34,11 +40,28 @@ class VerifierContext:
     the Poseidon2 root of the receipt it wraps (succinct.rs:182)."""
 
     hashfn: str = "poseidon2"
+    dev_mode: bool = field(default_factory=is_dev_mode)
     control_root: np.ndarray | None = None
     inner_control_root: np.ndarray | None = None
     # Groth16 verifier parameters (reference receipt/groth16.rs:132-185);
     # None: Groth16ReceiptVerifierParameters.default()
     groth16_params: object | None = None
+
+
+@dataclass
+class FakeReceipt:
+    """Dev-mode receipt; proves nothing (reference receipt.rs
+    FakeReceipt)."""
+
+    claim: ReceiptClaim
+
+    def verify_integrity(self, ctx: VerifierContext):
+        if not ctx.dev_mode:
+            raise VerificationError(
+                "fake receipt rejected: dev mode is not enabled")
+
+    def claim_digest(self) -> np.ndarray:
+        return self.claim.digest()
 
 
 def _check_hashfn(hashfn: str, ctx: VerifierContext):
@@ -257,8 +280,8 @@ class Groth16Receipt:
 
 @dataclass
 class InnerReceipt:
-    """The proof inside a Receipt: kind "composite", "succinct" or
-    "groth16"."""
+    """The proof inside a Receipt: kind "composite", "succinct",
+    "groth16" or "fake"."""
 
     kind: str
     value: object

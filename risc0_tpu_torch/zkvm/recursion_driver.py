@@ -1,7 +1,8 @@
 """Recursion driver: lift rv32im segment and keccak receipts, join,
-union and resolve them into one succinct receipt, and re-prove it under
-the Poseidon254 suite for the Groth16 wrap (counterpart of
-``risc0_tpu/zkvm/recursion_driver.py`` without its PoVW parts; reference
+union and resolve them into one succinct receipt, thread the PoVW work
+record through the WorkClaim variants of lift, join and resolve, and
+re-prove a receipt under the Poseidon254 suite for the Groth16 wrap
+(counterpart of ``risc0_tpu/zkvm/recursion_driver.py``; reference
 risc0/zkvm/src/host/recursion/prove/mod.rs:73-392 and
 host/server/prove/prover_impl.rs).
 
@@ -22,9 +23,11 @@ from ..circuit.recursion.predicates import (identity_p254_control_id,
                                             load_own_program, own_control_ids)
 from ..circuit.recursion.prove import (MerkleGroup, load_keccak_lift,
                                        prove_zkr, read_sha_halfs)
+from ..circuit.rv32im.claim import decode_work
 from ..convert import card
 from .claims import (Assumption, Assumptions, MaybePruned, Output,
                      ReceiptClaim, opt_digest)
+from .povw import WorkClaim
 from .receipt import SuccinctReceipt, VerificationError, union_claim
 
 
@@ -189,14 +192,16 @@ def _digest_of(v) -> np.ndarray:
                       np.uint32)
 
 
-def resolve(conditional: SuccinctReceipt, assumption: SuccinctReceipt,
-            device="cuda", **kw) -> SuccinctReceipt:
-    """Remove the head assumption from a conditional receipt's claim
-    (reference host/recursion/prove/mod.rs:214-258), proved on `device`.
-    The conditional's claim must carry an unpruned Output whose head
-    assumption is `assumption`'s claim."""
-    device = card(device)
-    claim = conditional.claim
+def _resolve_parts(conditional: SuccinctReceipt, claim: ReceiptClaim,
+                   assumption: SuccinctReceipt, work=None):
+    """(tape, resolved claim) of resolving the head assumption of `claim`,
+    the conditional receipt's ReceiptClaim, which must carry an unpruned
+    Output.  The tape is the resolve program's, with the Work record before
+    the assumption for the PoVW programs.  The resolved claim keeps the
+    rest of the assumptions as a value (reference Assumptions::resolve),
+    so the next resolve finds its head; the JAX package prunes the rest to
+    its digest and cannot resolve a second assumption (ROADMAP.md queue
+    3).  Its digest, which the program proves, is the same."""
     out = claim.output.value if hasattr(claim.output, "value") \
         else claim.output
     if out is None or not out.assumptions.value.items:
@@ -205,7 +210,7 @@ def resolve(conditional: SuccinctReceipt, assumption: SuccinctReceipt,
     head = items[0]
     head_claim = _digest_of(head.value.claim if hasattr(head, "value")
                             else head.claim)
-    rest_digest = Assumptions(list(items[1:])).digest()
+    rest = Assumptions(list(items[1:]))
     journal = _digest_of(out.journal)
 
     ids, leaves, root = _allowed()
@@ -217,17 +222,31 @@ def resolve(conditional: SuccinctReceipt, assumption: SuccinctReceipt,
               claim.post.digest()):
         tape += _words(d)
     tape += list(claim.exit_code.into_pair())
-    for d in (journal, head_claim, rest_digest):
+    for d in (journal, head_claim, rest.digest()):
         tape += _words(d)
+    if work is not None:
+        tape += _work_tape_words(work)
     tape += _proof_words(group, assumption.control_id)
     tape += _words(assumption.seal)
 
     resolved = ReceiptClaim(
         pre=claim.pre, post=claim.post, exit_code=claim.exit_code,
         input=claim.input,
-        output=MaybePruned.of(Output(
-            MaybePruned.from_digest(journal),
-            MaybePruned.from_digest(rest_digest))))
+        output=MaybePruned.of(Output(MaybePruned.from_digest(journal),
+                                     MaybePruned.of(rest))))
+    return tape, resolved
+
+
+def resolve(conditional: SuccinctReceipt, assumption: SuccinctReceipt,
+            device="cuda", **kw) -> SuccinctReceipt:
+    """Remove the head assumption from a conditional receipt's claim
+    (reference host/recursion/prove/mod.rs:214-258), proved on `device`.
+    The conditional's claim must carry an unpruned Output whose head
+    assumption is `assumption`'s claim."""
+    device = card(device)
+    tape, resolved = _resolve_parts(conditional, conditional.claim,
+                                    assumption)
+    ids, leaves, _root = _allowed()
     receipt = prove_zkr(load_own_program("resolve"), ids["resolve"], leaves,
                         tape, claim=resolved, device=device, **kw)
     if not np.array_equal(receipt_claim_digest(receipt), resolved.digest()):
@@ -331,3 +350,131 @@ def compress_composite(composite, device="cuda", **kw) -> SuccinctReceipt:
     for ar in composite.assumption_receipts:
         acc = resolve(acc, _as_succinct(ar), device, **kw)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# PoVW variants: WorkClaim-wrapped receipts that thread the segment nonces
+# through the recursion programs (reference recursion/prove/mod.rs:88-173,
+# 255-352)
+# ---------------------------------------------------------------------------
+
+def _work_tape_words(work) -> list[int]:
+    """nonce_min and nonce_max as 8 raw u32 words each, then value as 2
+    raw words (the layout of the JAX package's predicates._read_work)."""
+    return (_words(work.nonce_min.to_u32s()) + _words(work.nonce_max.to_u32s())
+            + _words(np.frombuffer(int(work.value).to_bytes(8, "little"),
+                                   np.uint32)))
+
+
+def lift_povw(segment_receipt, device="cuda", **kw) -> SuccinctReceipt:
+    """rv32im SegmentReceipt -> SuccinctReceipt[WorkClaim] via
+    lift_rv32im_povw_{po2} (reference recursion/prove/mod.rs:88-103),
+    proved on `device`.  The claim is WorkClaim{segment claim,
+    Work{nonce, nonce, cycles}}, the nonce read from the seal's
+    povw_nonce globals in the VM."""
+    device = card(device)
+    seal = np.asarray(segment_receipt.seal, np.uint32)
+    po2 = int(seal[91])
+    ids, leaves, root = _allowed()
+    name = f"lift_rv32im_povw_{po2}"
+    if name not in ids:
+        raise VerificationError(f"no PoVW lift predicate for po2={po2}")
+    wc = WorkClaim(segment_receipt.claim, decode_work(seal))
+    receipt = prove_zkr(load_own_program(name), ids[name], leaves,
+                        _words(root) + _words(seal), claim=wc, device=device,
+                        **kw)
+    if not np.array_equal(receipt_claim_digest(receipt), wc.digest()):
+        raise VerificationError("lift_povw output claim digest mismatch")
+    return receipt
+
+
+def join_povw(left: SuccinctReceipt, right: SuccinctReceipt, unwrap=False,
+              device="cuda", **kw) -> SuccinctReceipt:
+    """Join two WorkClaim receipts on `device`: the claims must chain and
+    the nonce ranges be contiguous; the work values add up.  With
+    `unwrap`, the joined receipt carries the bare ReceiptClaim
+    (join_unwrap_povw; reference recursion/prove/mod.rs:137-173)."""
+    device = card(device)
+    ids, leaves, root = _allowed()
+    group = MerkleGroup(leaves)
+    name = "join_unwrap_povw" if unwrap else "join_povw"
+    tape = _words(root)
+    for r in (left, right):
+        tape += _proof_words(group, r.control_id)
+        tape += _words(r.seal)
+        tape += _claim_body_words(r.claim.claim)
+        tape += _work_tape_words(r.claim.work)
+    lc, rc = left.claim.claim, right.claim.claim
+    joined = ReceiptClaim(pre=lc.pre, post=rc.post, exit_code=rc.exit_code,
+                          input=lc.input, output=rc.output)
+    claim = joined if unwrap else WorkClaim(
+        joined, left.claim.work.join(right.claim.work))
+    receipt = prove_zkr(load_own_program(name), ids[name], leaves, tape,
+                        claim=claim, device=device, **kw)
+    if not np.array_equal(receipt_claim_digest(receipt), claim.digest()):
+        raise VerificationError(f"{name} output claim digest mismatch")
+    return receipt
+
+
+def unwrap_povw(inner: SuccinctReceipt, device="cuda",
+                **kw) -> SuccinctReceipt:
+    """SuccinctReceipt[WorkClaim] -> SuccinctReceipt[ReceiptClaim] on
+    `device`, the work record dropped (reference recursion/prove/
+    mod.rs:336-352)."""
+    device = card(device)
+    ids, leaves, root = _allowed()
+    tape = _words(root) + _proof_words(MerkleGroup(leaves), inner.control_id)
+    tape += _words(inner.seal)
+    tape += _claim_body_words(inner.claim.claim)
+    tape += _work_tape_words(inner.claim.work)
+    claim = inner.claim.claim
+    receipt = prove_zkr(load_own_program("unwrap_povw"), ids["unwrap_povw"],
+                        leaves, tape, claim=claim, device=device, **kw)
+    if not np.array_equal(receipt_claim_digest(receipt), claim.digest()):
+        raise VerificationError("unwrap_povw output claim digest mismatch")
+    return receipt
+
+
+def resolve_povw(conditional: SuccinctReceipt, assumption: SuccinctReceipt,
+                 unwrap=False, device="cuda", **kw) -> SuccinctReceipt:
+    """Resolve the head assumption of a WorkClaim receipt on `device`; the
+    work record passes through unchanged, or is dropped with `unwrap`
+    (resolve_unwrap_povw; reference recursion/prove/mod.rs:255-332).
+    `assumption` is a plain succinct receipt, and the tape is `resolve`'s
+    with the work record before the assumption."""
+    device = card(device)
+    wc = conditional.claim
+    tape, resolved = _resolve_parts(conditional, wc.claim, assumption,
+                                    wc.work)
+    ids, leaves, _root = _allowed()
+    name = "resolve_unwrap_povw" if unwrap else "resolve_povw"
+    rclaim = resolved if unwrap else WorkClaim(resolved, wc.work)
+    receipt = prove_zkr(load_own_program(name), ids[name], leaves, tape,
+                        claim=rclaim, device=device, **kw)
+    if not np.array_equal(receipt_claim_digest(receipt), rclaim.digest()):
+        raise VerificationError(f"{name} output claim digest mismatch")
+    return receipt
+
+
+def compress_composite_povw(composite, device="cuda", **kw):
+    """The PoVW compress on `device`: lift_povw every segment, join_povw
+    the chain, resolve the assumption receipts head first, and unwrap the
+    WorkClaim in the last merge (reference prover_impl povw flow and
+    composite_to_succinct_povw).  Returns (the succinct receipt of the
+    bare session claim, the total Work)."""
+    device = card(device)
+    lifted = [lift_povw(sr, device, **kw) for sr in composite.segments]
+    assumptions = list(composite.assumption_receipts)
+    if len(lifted) == 1 and not assumptions:
+        return unwrap_povw(lifted[0], device, **kw), lifted[0].claim.work
+    acc = lifted[0]
+    for nxt in lifted[1:-1] if not assumptions else lifted[1:]:
+        acc = join_povw(acc, nxt, device=device, **kw)
+    if not assumptions:
+        total = acc.claim.work.join(lifted[-1].claim.work)
+        return join_povw(acc, lifted[-1], True, device, **kw), total
+    total = acc.claim.work
+    for i, ar in enumerate(assumptions):
+        acc = resolve_povw(acc, _as_succinct(ar), i == len(assumptions) - 1,
+                           device, **kw)
+    return acc, total

@@ -520,10 +520,11 @@ def test_prover_impl_composite_matches_jax(monkeypatch):
 
 
 def test_what_is_not_ported_raises():
-    """The dev-mode prover and PoVW wait for ROADMAP.md queue 1 and
-    raise; the groth16 kind, identity_p254 and shrink_wrap are served
+    """The dev-mode prover waits for ROADMAP.md queue 1 and raises; the
+    groth16 kind, identity_p254 and shrink_wrap are served
     (tests/test_torch_snark.py), and identity_p254 takes only a
-    Poseidon2 receipt."""
+    Poseidon2 receipt; PoVW is served (tests/test_torch_povw_recursion.py
+    proves a PoVW session on stubs)."""
     from risc0_tpu_torch.zkvm.prover import (ProverImpl, ProverOpts,
                                              get_prover_server)
     from risc0_tpu_torch.zkvm.receipt import VerificationError
@@ -541,5 +542,8 @@ def test_what_is_not_ported_raises():
     class PovwSession:
         povw_job_id = 1
 
-    with pytest.raises(NotImplementedError, match="PoVW"):
+    # a PoVW session now reaches the prove, which reads its exit code
+    with pytest.raises(AttributeError, match="exit_code"):
         prover.prove_session(PovwSession())
+    for name in ("lift_povw", "join_povw", "unwrap_povw", "resolve_povw"):
+        assert callable(getattr(prover, name))

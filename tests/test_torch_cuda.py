@@ -265,6 +265,37 @@ def test_lift_on_the_card(dev):
     assert np.array_equal(receipt.claim.digest(), decode_claim(seal).digest())
 
 
+def test_lift_povw_of_a_nonce_segment_on_the_card(dev):
+    """A po2 14 loop segment with a PoVW nonce proved on the card, lifted
+    with lift_rv32im_povw_14 into a verified receipt of
+    WorkClaim(decode_claim, decode_work)."""
+    from risc0_tpu_torch import loop_guest
+    from risc0_tpu_torch.circuit.recursion.predicates import own_control_ids
+    from risc0_tpu_torch.circuit.rv32im.claim import (decode_claim,
+                                                      decode_work)
+    from risc0_tpu_torch.circuit.rv32im.prove import prove_segment
+    from risc0_tpu_torch.zkvm.exec import ExecutorEnv, ExecutorImpl
+    from risc0_tpu_torch.zkvm.povw import PovwJobId, WorkClaim
+    from risc0_tpu_torch.zkvm.receipt import SegmentReceipt, VerifierContext
+    from risc0_tpu_torch.zkvm.recursion_driver import lift_povw
+
+    job = PovwJobId(log=0x5EED, job=3)
+    env = ExecutorEnv(segment_po2=16, povw_job_id=job).write_slice(
+        (100).to_bytes(4, "little"))
+    (seg,) = ExecutorImpl(env, loop_guest.elf()).run().segments
+    seal = prove_segment(seg, rand_z=(1, 2, 3, 4), device=dev)
+    work = decode_work(seal)
+    assert (work.nonce_min, work.nonce_max, work.value) == \
+        (job.nonce(0), job.nonce(0), 1 << 14)
+    receipt = lift_povw(SegmentReceipt(seal, 0, "poseidon2",
+                                       decode_claim(seal)),
+                        device=dev, rng=np.random.default_rng(2))
+    _ids, root = own_control_ids()
+    receipt.verify_integrity(VerifierContext(control_root=root))
+    assert np.array_equal(receipt.claim.digest(),
+                          WorkClaim(decode_claim(seal), work).digest())
+
+
 # the keccak prove's data group: 1096 columns (68 full Poseidon2 blocks
 # and 8 words) at 2^17 rows, its 4x LDE, its leaves and a tree of 2^19
 # leaves

@@ -27,7 +27,9 @@ def _forbidden(name: str) -> bool:
 
 
 def _run(script: str) -> str:
-    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    # dev mode off: the PoVW updater's default prover is then the card's
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="",
+               RISC0_DEV_MODE="")
     res = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -63,7 +65,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "hash.suite", "groth16", "groth16.bn254", "groth16.native",
                  "groth16.verifier", "groth16.seal_to_json", "groth16.r1cs",
                  "groth16.gadgets", "groth16.stark_verify", "groth16.prove",
-                 "groth16.wrap", "groth16.solidity"):
+                 "groth16.wrap", "groth16.solidity", "zkvm.povw",
+                 "zkvm.povw_tree", "zkvm.povw_updater", "zkvm.povw_guest",
+                 "zkvm.guest_env"):
         assert "risc0_tpu_torch." + name in out["imported"]
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
@@ -118,6 +122,18 @@ _ENTRY_POINTS = {
     "identity_p254": "drv.identity_p254(None)",
     "ProverImpl": "ProverImpl()",
     "default_prover": "default_prover()",
+    "lift_povw": "drv.lift_povw(SegmentReceipt(np.zeros(100, np.uint32), 0, "
+                 "'poseidon2', None))",
+    "join_povw": "drv.join_povw(None, None)",
+    "unwrap_povw": "drv.unwrap_povw(None)",
+    "resolve_povw": "drv.resolve_povw(None, None)",
+    "compress_composite_povw": "drv.compress_composite_povw("
+                               "CompositeReceipt([SegmentReceipt(np.zeros("
+                               "100, np.uint32), 0, 'poseidon2', None)]))",
+    "ProverImpl (PoVW)": "ProverImpl(ProverOpts(receipt_kind='succinct'))"
+                         ".prove(loop_guest.session_env(16, 1, "
+                         "PovwJobId(1, 2)), loop_guest.elf())",
+    "WorkLogUpdateProver": "WorkLogUpdateProver(log_id=0).prove_update([])",
 }
 
 _CALL_ALL = """
@@ -133,7 +149,10 @@ from risc0_tpu_torch.hal import torch_hal as hal
 from risc0_tpu_torch.hash.suite import POSEIDON2, POSEIDON254, SHA256
 from risc0_tpu_torch.prove.prover import Prover
 from risc0_tpu_torch.zkvm import recursion_driver as drv
-from risc0_tpu_torch.zkvm.prover import ProverImpl, default_prover
+from risc0_tpu_torch import loop_guest
+from risc0_tpu_torch.zkvm.povw import PovwJobId
+from risc0_tpu_torch.zkvm.povw_updater import WorkLogUpdateProver
+from risc0_tpu_torch.zkvm.prover import ProverImpl, ProverOpts, default_prover
 from risc0_tpu_torch.zkvm.receipt import CompositeReceipt, SegmentReceipt
 assert not torch.cuda.is_available()
 out = {}
