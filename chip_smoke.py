@@ -96,6 +96,26 @@ non-zero:
                join_povw, unwrap_povw, resolve_povw and
                resolve_unwrap_povw committed on the card
 
+ 11. orchestration - the host layers: `python -m risc0_tpu_torch.cli id`
+               of the loop guest (== ExecutorImpl.compute_image_id) and
+               `prove --po2 16 --receipt-kind composite` on the card (its
+               claim_digest == session_claim of the same session), each a
+               subprocess; then a cluster from a TOML config
+               (launch_cluster: one executor, one preflight worker, two
+               card workers as threads of this process, all running
+               ProverImpl(succinct)) runs ProofJob(split_preflight=True)
+               over phase 7's two-segment session: the receipt must pass
+               Receipt.verify(image_id) with the session's claim and a
+               flipped seal word must be rejected.  Each task's kind,
+               worker and wall time (the telemetry spans), the job's wall
+               time, the most card tasks running at once, peak device
+               memory and each kernel's launches (every count > 0).  Last,
+               a fresh process whose make_local_pools (two card workers)
+               proves that session composite with no retries: both
+               segment proves start together, so the first use of the
+               kernel library and the witgen caches is concurrent; every
+               task must succeed and the receipt verify
+
 Phase 3 also holds the kernels at the recursion prove's shapes (12, 23
 and 128 columns at 2^18 rows, the check group, trees of 2^20 leaves, its
 FRI rounds) and at the keccak prove's (1096 columns at 2^17 rows and at
@@ -103,7 +123,7 @@ FRI rounds) and at the keccak prove's (1096 columns at 2^17 rows and at
 2^19 leaves).  The last two lines are a JSON object {"kernels": [...]}
 (launches: phase 6's prove; launches_recursion: phase 7's;
 launches_composition: phase 8's; launches_snark: phase 9's identity_p254;
-launches_povw: phase 10's proves)
+launches_povw: phase 10's proves; launches_cluster: phase 11's job)
 and {"ok": true, "device": {...}}.
 Imports nothing of jax.
 """
@@ -473,7 +493,14 @@ def _watch(module, name, log, counters=()):
                                  for fn, b in zip(counters, before)}})
         return out
 
+    timed.__wrapped__ = inner
     setattr(module, name, timed)
+
+
+def _unwatch(module, name):
+    """Put back what _watch wrapped, if it did."""
+    fn = getattr(module, name)
+    setattr(module, name, getattr(fn, "__wrapped__", fn))
 
 
 def _print_recursion_prove(name, rec):
@@ -1101,6 +1128,232 @@ def phase_povw(dev, counters, rec_log):
     return launches
 
 
+CLUSTER_TOML = """
+version = 1
+[executor]
+count = 1
+[[prover]]
+subscribe = ["preflight"]
+count = 1
+[[prover]]
+subscribe = ["prove-segment", "lift", "join", "union", "resolve", "unwrap"]
+count = 2
+"""
+CARD_TASKS = ("prove_segment", "lift", "join", "union", "resolve", "unwrap")
+
+
+def _cli(*argv):
+    """(seconds, last stdout line) of the port's CLI in a subprocess."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "risc0_tpu_torch.cli", *argv],
+                         capture_output=True, text=True, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT), timeout=300,
+                         check=False)
+    if res.returncode != 0:
+        raise AssertionError(f"cli {argv[0]} failed ({res.returncode}): "
+                             f"{res.stderr[-2000:]}")
+    return time.perf_counter() - t0, res.stdout.strip().splitlines()[-1]
+
+
+def _peak_concurrency(spans) -> int:
+    """Most spans open at one instant."""
+    edges = sorted([(s.start_ns, 1) for s in spans]
+                   + [(s.end_ns, -1) for s in spans])
+    cur = peak = 0
+    for _t, d in edges:
+        cur += d
+        peak = max(peak, cur)
+    return peak
+
+
+def cold_pool_child() -> int:
+    """Phase 11 (c), run in a fresh process: make_local_pools with two card
+    workers and ProverImpl(composite) proves phase 7's two-segment
+    session; both prove-segment tasks start together, so the first use of
+    the kernel library, libr0vm.so, the witgen graphs and their plans
+    happens on two threads at once.  No retries.  Prints one JSON line."""
+    sys.path.insert(0, ROOT)
+    from risc0_tpu_torch import loop_guest, telemetry
+    from risc0_tpu_torch.parallel.scheduler import (Factory, ProofJob,
+                                                    make_local_pools)
+    from risc0_tpu_torch.zkvm.exec import ExecutorImpl
+    from risc0_tpu_torch.zkvm.prover import ProverImpl, ProverOpts
+    from risc0_tpu_torch.zkvm.receipt import (InnerReceipt, Receipt,
+                                              session_claim)
+
+    prover = ProverImpl(ProverOpts(receipt_kind="composite"), device="cuda")
+    factory = Factory()
+    workers = make_local_pools(factory, prover, num_cpu=1, num_accel=2)
+    elf = loop_guest.elf()
+    env = loop_guest.session_env(REC_SESSION_PO2, 2)
+    try:
+        job = ProofJob(factory, prover, env, elf, receipt_kind="composite")
+        job.max_retries = 0
+        job_s, (session, composite) = _wall_s(job.run)
+    finally:
+        for w in workers:
+            w.stop()
+    receipt = Receipt(InnerReceipt("composite", composite), session.journal)
+    receipt.verify(ExecutorImpl(env, elf).compute_image_id())
+    tasks = sorted((s for s in telemetry.tracer().finished()
+                    if s.name.startswith("task:")), key=lambda s: s.start_ns)
+    t_first = tasks[0].start_ns
+    proves = [s for s in tasks if s.name == "task:prove_segment"]
+    print(json.dumps({
+        "job_s": job_s,
+        "tasks": [[s.name[5:], s.attributes["worker"],
+                   (s.start_ns - t_first) / 1e9,
+                   (s.end_ns - s.start_ns) / 1e9, s.status] for s in tasks],
+        "prove_overlap_s": (min(s.end_ns for s in proves)
+                            - max(s.start_ns for s in proves)) / 1e9,
+        "claim_ok": bool(np.array_equal(receipt.claim().digest(),
+                                        session_claim(session).digest())),
+    }), flush=True)
+    return 0
+
+
+def phase_orchestration(dev, counters):
+    """The host layers on the card: the CLI in subprocesses (id, and a
+    composite prove of one po2 16 segment), then a cluster from a TOML
+    config running ProofJob with split preflight over the two-segment
+    session of phase 7, its receipt verified.  Returns {kernel: launches
+    over the cluster's job}."""
+    from risc0_tpu_torch import loop_guest, telemetry
+    from risc0_tpu_torch.circuit.recursion.predicates import own_control_ids
+    from risc0_tpu_torch.parallel.config import launch_cluster, load_config
+    from risc0_tpu_torch.parallel.scheduler import ProofJob
+    from risc0_tpu_torch.zkvm.exec import ExecutorEnv, ExecutorImpl
+    from risc0_tpu_torch.zkvm.prover import ProverImpl, ProverOpts
+    from risc0_tpu_torch.zkvm.receipt import (InnerReceipt, Receipt,
+                                              VerificationError,
+                                              VerifierContext, session_claim)
+
+    t_phase = time.perf_counter()
+    elf = loop_guest.elf()
+
+    # (a) the CLI
+    secs, image_id = _cli("id", "--elf", loop_guest.ELF)
+    want = ExecutorImpl(ExecutorEnv(), elf).compute_image_id()
+    same = image_id == want.tobytes().hex()
+    print(f"orchestration: cli id {image_id} in {secs:.2f} s == "
+          f"ExecutorImpl.compute_image_id(): {same}", flush=True)
+    if not same:
+        raise AssertionError("the CLI's image ID is not the host's")
+    input_hex = loop_guest.session_env(REC_SESSION_PO2, 1).input.hex()
+    secs, line = _cli("prove", "--elf", loop_guest.ELF, "--input-hex",
+                      input_hex, "--po2", str(REC_SESSION_PO2),
+                      "--receipt-kind", "composite")
+    out = json.loads(line)
+    env = ExecutorEnv(segment_po2=REC_SESSION_PO2).write_slice(
+        bytes.fromhex(input_hex))
+    session = ExecutorImpl(env, elf).run()
+    same = (out["kind"] == "composite" and out["claim_digest"]
+            == session_claim(session).digest().tobytes().hex())
+    print(f"orchestration: cli prove --receipt-kind composite on the card "
+          f"({out['segments']} segment(s), {out['total_cycles']} cycles) in "
+          f"{secs:.2f} s (process start, build check, prove and its "
+          f"self-check); claim_digest == session_claim: {same}", flush=True)
+    if not same:
+        raise AssertionError("the CLI's claim digest is not the session's")
+
+    # (b) the cluster
+    rprove_mod = sys.modules["risc0_tpu_torch.circuit.recursion.prove"]
+    rv_mod = sys.modules["risc0_tpu_torch.circuit.rv32im.prove"]
+    _unwatch(rprove_mod, "prove_program")  # its resets race across threads
+    _unwatch(rv_mod, "prove_segment_core")
+    _ids, root = own_control_ids()
+    prover = ProverImpl(ProverOpts(receipt_kind="succinct"), device=dev)
+    cluster = launch_cluster(load_config(CLUSTER_TOML), prover=prover)
+    env = loop_guest.session_env(REC_SESSION_PO2, 2)
+    telemetry.tracer().reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    try:
+        job = ProofJob(cluster.factory, prover, env, elf,
+                       split_preflight=True)
+        job_s, (session, succinct) = _wall_s(job.run)
+    finally:
+        cluster.stop()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated()
+    po2s = [s.po2 for s in session.segments]
+    print(f"orchestration: cluster ProofJob(split_preflight) of a "
+          f"{len(po2s)}-segment loop session (segments of po2 {po2s}) in "
+          f"{job_s:.3f} s; peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    if po2s != [REC_SESSION_PO2, REC_SESSION_PO2 - 1]:
+        raise AssertionError(f"the session's segments are of po2 {po2s}")
+    spans = telemetry.tracer().finished()
+    tasks = sorted((s for s in spans if s.name.startswith("task:")),
+                   key=lambda s: s.start_ns)
+    t_first = min(s.start_ns for s in tasks)
+    for s in tasks:
+        print(f"  {s.name[5:]:<14} {s.attributes['worker']:<13} start "
+              f"{(s.start_ns - t_first) / 1e9:8.3f} s  wall "
+              f"{(s.end_ns - s.start_ns) / 1e9:8.3f} s  {s.status}",
+              flush=True)
+    card = [s for s in tasks if s.name[5:] in CARD_TASKS]
+    print(f"orchestration: {len(tasks)} tasks; at most "
+          f"{_peak_concurrency(card)} card tasks at once (prove-segment, "
+          f"lift, join; two workers), at most {_peak_concurrency(tasks)} "
+          f"tasks of any kind", flush=True)
+    if any(s.status != "OK" for s in tasks):
+        raise AssertionError("a task of the cluster's job failed")
+    t0 = time.perf_counter()
+    ctx = VerifierContext(control_root=root)
+    receipt = Receipt(InnerReceipt("succinct", succinct), session.journal)
+    receipt.verify(ExecutorImpl(env, elf).compute_image_id(), ctx)
+    same = np.array_equal(succinct.claim.digest(),
+                          session_claim(session).digest())
+    print(f"orchestration: the job's succinct receipt passed "
+          f"Receipt.verify(image_id) in {time.perf_counter() - t0:.2f} s; "
+          f"claim == session_claim(session): {same}", flush=True)
+    if not same:
+        raise AssertionError("the cluster's claim is not the session's")
+    bad = np.array(succinct.seal)
+    bad[len(bad) // 2] ^= 1
+    try:
+        dataclasses.replace(succinct, seal=bad).verify_integrity(ctx)
+    except VerificationError as e:
+        rejected = str(e)
+    else:
+        raise AssertionError("a corrupted cluster receipt was accepted")
+    print(f"orchestration: flipped seal word rejected ({rejected})",
+          flush=True)
+
+    # (c) cold first use from two card workers, in a fresh process
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.cold_pool_child())"],
+        capture_output=True, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), timeout=300, check=False)
+    if res.returncode != 0:
+        raise AssertionError(f"the cold pool failed ({res.returncode}): "
+                             f"{res.stderr[-2000:]}")
+    cold = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"orchestration: a fresh process's make_local_pools(2 card "
+          f"workers) proved the session composite in {cold['job_s']:.3f} s "
+          f"({time.perf_counter() - t0:.2f} s with process start); the two "
+          f"prove-segment tasks overlapped {cold['prove_overlap_s']:.3f} s; "
+          f"claim == session_claim: {cold['claim_ok']}", flush=True)
+    for kind, worker, start, wall, status in cold["tasks"]:
+        print(f"  {kind:<14} {worker:<13} start {start:8.3f} s  wall "
+              f"{wall:8.3f} s  {status}", flush=True)
+    if not cold["claim_ok"] or cold["prove_overlap_s"] <= 0 or any(
+            t[4] != "OK" for t in cold["tasks"]):
+        raise AssertionError("the cold pool's first use did not hold")
+    print(f"orchestration: launches {json.dumps(launches)}; phase 11 in "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the cluster's job: "
+                             f"{missing}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1147,6 +1400,7 @@ def main() -> int:
     launches_comp = phase_composition(dev, counters, rec_log)
     launches_snark = phase_snark(dev, lifted, counters, rec_log)
     launches_povw = phase_povw(dev, counters, rec_log)
+    launches_cluster = phase_orchestration(dev, counters)
 
     meta = {
         "hash_rows": ("poseidon2.cu", "risc0_tpu/hal/pallas/poseidon2.py:121"),
@@ -1161,6 +1415,7 @@ def main() -> int:
         "launches_composition": launches_comp[name],
         "launches_snark": launches_snark[name],
         "launches_povw": launches_povw[name],
+        "launches_cluster": launches_cluster[name],
         "max_abs_err": rec[name]["max_abs_err"],
         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
         "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],

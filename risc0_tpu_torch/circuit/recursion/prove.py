@@ -17,6 +17,7 @@ import lzma
 import os
 import re
 import struct
+import threading
 
 import numpy as np
 
@@ -102,10 +103,17 @@ def _load_prog_bin(name):
 
 
 _cache = {}
+_cache_lock = threading.Lock()
 
 
 def _progs():
-    if not _cache:
+    """The witgen programs and the bound native library, loaded once a
+    process (concurrent first calls wait for one load)."""
+    if "lib" in _cache:
+        return _cache
+    with _cache_lock:
+        if "lib" in _cache:
+            return _cache
         for k, fname in (("exec", "rec_step_exec.bin"),
                          ("vmem", "rec_step_verify_mem.bin"),
                          ("comp", "rec_step_compute_accum.bin"),

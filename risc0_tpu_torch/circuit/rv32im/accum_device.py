@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import os
 import struct
+import threading
 
 import numpy as np
 import torch
@@ -483,12 +484,16 @@ def build_accum_graph():
 
 
 _GRAPH = None
+_GRAPH_LOCK = threading.Lock()
 
 
 def accum_graph():
+    """The graph, built once a process (concurrent first calls wait)."""
     global _GRAPH
     if _GRAPH is None:
-        _GRAPH = build_accum_graph()
+        with _GRAPH_LOCK:
+            if _GRAPH is None:
+                _GRAPH = build_accum_graph()
     return _GRAPH
 
 
@@ -705,25 +710,34 @@ def _run_plan(plan, dp, taps, scalars, state, chunk):
     return out
 
 
-_PLANS = {}
+_PLANS = None
+_PLANS_LOCK = threading.Lock()
 
 
 def _plans():
-    if not _PLANS:
-        ag = accum_graph()
-        _PLANS["ag"] = ag
-        _PLANS["probe"] = ExecPlan(ag, ag.out_cols[:STATE_COLS])
-        _PLANS["full"] = ExecPlan(ag, ag.out_cols + [ag.bad])
+    """The graph and its two plans, built once a process and published
+    whole (concurrent first calls wait)."""
+    global _PLANS
+    if _PLANS is None:
+        with _PLANS_LOCK:
+            if _PLANS is None:
+                ag = accum_graph()
+                _PLANS = {"ag": ag,
+                          "probe": ExecPlan(ag, ag.out_cols[:STATE_COLS]),
+                          "full": ExecPlan(ag, ag.out_cols + [ag.bad])}
     return _PLANS
 
 
 _DEVICE_PLANS = {}
+_DEVICE_PLANS_LOCK = threading.Lock()
 
 
 def _device_plan(name, device):
     key = (name, str(device))
     if key not in _DEVICE_PLANS:
-        _DEVICE_PLANS[key] = _DevicePlan(_plans()[name], device)
+        with _DEVICE_PLANS_LOCK:
+            if key not in _DEVICE_PLANS:
+                _DEVICE_PLANS[key] = _DevicePlan(_plans()[name], device)
     return _DEVICE_PLANS[key]
 
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import os
 import struct
+import threading
 
 import numpy as np
 import torch
@@ -394,12 +395,16 @@ def build_exec_graph():
 
 
 _GRAPH = None
+_GRAPH_LOCK = threading.Lock()
 
 
 def exec_graph():
+    """The graph, built once a process (concurrent first calls wait)."""
     global _GRAPH
     if _GRAPH is None:
-        _GRAPH = build_exec_graph()
+        with _GRAPH_LOCK:
+            if _GRAPH is None:
+                _GRAPH = build_exec_graph()
     return _GRAPH
 
 
@@ -543,22 +548,33 @@ class ExecPlan:
 _MAXBACK = 68
 
 
+_PLANS_LOCK = threading.Lock()
+
+
 def _plans_exec():
+    """The graph and its two plans, built once a process and published
+    whole (concurrent first calls wait)."""
     eg = exec_graph()
     if not hasattr(eg, "_plans"):
-        p1o = []
-        for m8, m16, idx, _pc in eg.delta_sites:
-            p1o += [m8, m16, idx]
-        p2o = list(eg.data_cols) + [eg.bad]
-        for _col, cond, val in eg.glob_sites:
-            p2o += [cond, val]
-        p1 = ExecPlan(eg, p1o)
-        # the two-pass algorithm requires the delta sites (masks/indices)
-        # to be independent of the histograms they feed
-        assert all(k != HISTG for k, *_ in p1.groups), \
-            "lookup-delta sites must not depend on lookup-current reads"
-        eg._plans = {"p1": p1, "p2": ExecPlan(eg, p2o)}
+        with _PLANS_LOCK:
+            if not hasattr(eg, "_plans"):
+                eg._plans = _build_plans_exec(eg)
     return eg, eg._plans
+
+
+def _build_plans_exec(eg):
+    p1o = []
+    for m8, m16, idx, _pc in eg.delta_sites:
+        p1o += [m8, m16, idx]
+    p2o = list(eg.data_cols) + [eg.bad]
+    for _col, cond, val in eg.glob_sites:
+        p2o += [cond, val]
+    p1 = ExecPlan(eg, p1o)
+    # the two-pass algorithm requires the delta sites (masks/indices)
+    # to be independent of the histograms they feed
+    assert all(k != HISTG for k, *_ in p1.groups), \
+        "lookup-delta sites must not depend on lookup-current reads"
+    return {"p1": p1, "p2": ExecPlan(eg, p2o)}
 
 
 def _accel_coo(pf, rows, meta):
@@ -798,12 +814,16 @@ def _exec_pipeline(cycles_t, glob_init, txns_t, bigint, accel, inj, split,
 
 
 _DEVICE_PLANS = {}
+_DEVICE_PLANS_LOCK = threading.Lock()
 
 
 def _exec_device_plan(name, device):
     key = (name, str(device))
     if key not in _DEVICE_PLANS:
-        _DEVICE_PLANS[key] = _ExecDevicePlan(_plans_exec()[1][name], device)
+        with _DEVICE_PLANS_LOCK:
+            if key not in _DEVICE_PLANS:
+                _DEVICE_PLANS[key] = _ExecDevicePlan(
+                    _plans_exec()[1][name], device)
     return _DEVICE_PLANS[key]
 
 

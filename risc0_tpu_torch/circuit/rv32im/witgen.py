@@ -18,6 +18,7 @@ import ctypes as C
 import json
 import os
 import struct
+import threading
 
 import numpy as np
 
@@ -61,17 +62,23 @@ def _load_program(name):
 
 
 _cache = {}
+_cache_lock = threading.Lock()
 
 
 def _programs():
-    if not _cache:
-        _cache["meta"] = _load_meta()
-        _cache["exec"] = _load_program("witgen_exec.bin")
-        _cache["accum"] = _load_program("witgen_accum.bin")
-        lib = native.lib()
-        lib.r0_witgen_run.restype = C.c_int
-        lib.r0_witgen_error.restype = C.c_char_p
-        _cache["lib"] = lib
+    """The witgen programs and the bound native library, loaded once a
+    process (concurrent first calls wait for one load)."""
+    if "lib" in _cache:
+        return _cache
+    with _cache_lock:
+        if "lib" not in _cache:
+            _cache["meta"] = _load_meta()
+            _cache["exec"] = _load_program("witgen_exec.bin")
+            _cache["accum"] = _load_program("witgen_accum.bin")
+            lib = native.lib()
+            lib.r0_witgen_run.restype = C.c_int
+            lib.r0_witgen_error.restype = C.c_char_p
+            _cache["lib"] = lib
     return _cache
 
 

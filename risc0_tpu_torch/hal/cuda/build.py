@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -34,6 +35,9 @@ _SIGNATURES = {
 }
 
 _lib = None
+# one build and one load a process: the first callers of several threads
+# (the accelerator workers of a proof-job cluster) wait for it
+_lock = threading.RLock()
 build_info: dict = {}
 
 
@@ -75,6 +79,11 @@ def build() -> Path:
     """Compile the library if this source hash has not been built; returns
     its path.  One nvcc per source, all started together, then one link.
     The compiler's -Xptxas -v report is kept beside the library."""
+    with _lock:
+        return _build()
+
+
+def _build() -> Path:
     so = BUILD_DIR / f"libr0torch_{_source_hash()}.so"
     log = so.with_suffix(".log")
     if so.exists():
@@ -107,16 +116,23 @@ def build() -> Path:
     return so
 
 
+def _load(path: Path) -> C.CDLL:
+    lib = C.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = C.c_int
+    return lib
+
+
 def library() -> C.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library, built on the first call of the process;
+    concurrent first calls build and load it once."""
     global _lib
     if _lib is None:
-        lib = C.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = C.c_int
-        _lib = lib
+        with _lock:
+            if _lib is None:
+                _lib = _load(build())
     return _lib
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes as C
 import os
 import subprocess
+import threading
 
 from ..assets import CSRC
 
@@ -28,13 +29,19 @@ def _load():
 
 
 _lib = None
+_lib_lock = threading.Lock()
 
 
 def lib():
+    """The configured library, built and loaded once: the first callers
+    of several threads wait for one build."""
     global _lib
     if _lib is None:
-        _lib = _load()
-        _configure(_lib)
+        with _lib_lock:
+            if _lib is None:
+                lib_ = _load()
+                _configure(lib_)
+                _lib = lib_
     return _lib
 
 

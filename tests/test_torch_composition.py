@@ -520,17 +520,18 @@ def test_prover_impl_composite_matches_jax(monkeypatch):
 
 
 def test_what_is_not_ported_raises():
-    """The dev-mode prover waits for ROADMAP.md queue 1 and raises; the
-    groth16 kind, identity_p254 and shrink_wrap are served
+    """Every prover is served: the dev-mode one too (tests/
+    test_torch_host.py), the groth16 kind, identity_p254 and shrink_wrap
     (tests/test_torch_snark.py), and identity_p254 takes only a
     Poseidon2 receipt; PoVW is served (tests/test_torch_povw_recursion.py
     proves a PoVW session on stubs)."""
-    from risc0_tpu_torch.zkvm.prover import (ProverImpl, ProverOpts,
-                                             get_prover_server)
+    from risc0_tpu_torch.zkvm.prover import (DevModeProver, ProverImpl,
+                                             ProverOpts, get_prover_server)
     from risc0_tpu_torch.zkvm.receipt import VerificationError
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        get_prover_server(ProverOpts(dev_mode=True), device="cpu")
+    assert isinstance(
+        get_prover_server(ProverOpts(dev_mode=True), device="cpu"),
+        DevModeProver)
     prover = ProverImpl(ProverOpts(receipt_kind="groth16"), device="cpu")
     p254 = _golden("torch", "recursion_seal_lift14")
     p254.hashfn = "poseidon254"

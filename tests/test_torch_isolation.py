@@ -67,7 +67,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "groth16.gadgets", "groth16.stark_verify", "groth16.prove",
                  "groth16.wrap", "groth16.solidity", "zkvm.povw",
                  "zkvm.povw_tree", "zkvm.povw_updater", "zkvm.povw_guest",
-                 "zkvm.guest_env"):
+                 "zkvm.guest_env", "log", "telemetry", "cli", "zkvm.serde",
+                 "zkvm.methods", "zkvm.bigint2", "zkvm.trace", "zkvm.gdb",
+                 "zkvm.ipc", "zkvm.client", "zkvm.api_server", "zkvm.bonsai",
+                 "parallel.scheduler", "parallel.config", "parallel.assets",
+                 "parallel.remote"):
         assert "risc0_tpu_torch." + name in out["imported"]
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
@@ -134,6 +138,14 @@ _ENTRY_POINTS = {
                          ".prove(loop_guest.session_env(16, 1, "
                          "PovwJobId(1, 2)), loop_guest.elf())",
     "WorkLogUpdateProver": "WorkLogUpdateProver(log_id=0).prove_update([])",
+    "launch_cluster": "launch_cluster(load_config('version = 1\\n'), "
+                      "prover=ProverImpl())",
+    "make_local_pools": "make_local_pools(Factory())",
+    "ApiServer": "ApiServer()",
+    "LocalProver": "client.LocalProver()",
+    "api_server.serve": "api_server.serve(port=0)",
+    "cli prove": "cli.main(['prove', '--elf', 'guests/loop.bin', "
+                 "'--input-hex', '0a000000', '--po2', '16'])",
 }
 
 _CALL_ALL = """
@@ -154,6 +166,11 @@ from risc0_tpu_torch.zkvm.povw import PovwJobId
 from risc0_tpu_torch.zkvm.povw_updater import WorkLogUpdateProver
 from risc0_tpu_torch.zkvm.prover import ProverImpl, ProverOpts, default_prover
 from risc0_tpu_torch.zkvm.receipt import CompositeReceipt, SegmentReceipt
+from risc0_tpu_torch import cli
+from risc0_tpu_torch.parallel.config import launch_cluster, load_config
+from risc0_tpu_torch.parallel.scheduler import Factory, make_local_pools
+from risc0_tpu_torch.zkvm import api_server, client
+from risc0_tpu_torch.zkvm.ipc import ApiServer
 assert not torch.cuda.is_available()
 out = {}
 for name, call in json.loads(%r).items():
