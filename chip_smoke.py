@@ -115,16 +115,37 @@ non-zero:
                segment proves start together, so the first use of the
                kernel library and the witgen caches is concurrent; every
                task must succeed and the receipt verify
+ 12. predicates - the port's generators on the card: lift_rv32im_20,
+               lift_rv32im_povw_16, join, union, identity and resolve
+               built (the lifts' rv32im code roots committed on the card)
+               and written to risc0_tpu_torch/build/predicates, each
+               control ID committed on the card; every program must equal
+               its vendored file word for word, every ID own_control_ids(),
+               and the allowed root rebuilt from the vendored ID list the
+               vendored root.  Each program's emission and commit times,
+               rows and SHA-256, and each kernel's launches (every count
+               > 0)
+ 13. sharded - one process over a list of devices (every card when there
+               are several, else the card twice): commit_sharded of a
+               seeded (211, 2^20) witness must equal commit_pipeline's
+               coefficients, evaluations and every Merkle layer; phase 6's
+               segment proved under mesh_context must give phase 6's seal
+               byte for byte, verify, and reject a flipped word.  Commit
+               times, the prove's wall time and peak memory of each card,
+               and each kernel's launches (every count > 0)
 
 Phase 3 also holds the kernels at the recursion prove's shapes (12, 23
 and 128 columns at 2^18 rows, the check group, trees of 2^20 leaves, its
 FRI rounds) and at the keccak prove's (1096 columns at 2^17 rows and at
 2^19 for the leaves, the commit's chunks of 32 and 8 columns, a tree of
-2^19 leaves).  The last two lines are a JSON object {"kernels": [...]}
-(launches: phase 6's prove; launches_recursion: phase 7's;
-launches_composition: phase 8's; launches_snark: phase 9's identity_p254;
-launches_povw: phase 10's proves; launches_cluster: phase 11's job)
-and {"ok": true, "device": {...}}.
+2^19 leaves), at phase 12's one-column code roots, and at phase 13's
+column blocks, row blocks and subtrees on one card.  The last two lines
+are a JSON object {"kernels": [...]} (launches: phase 6's prove;
+launches_recursion: phase 7's; launches_composition: phase 8's;
+launches_snark: phase 9's identity_p254; launches_povw: phase 10's proves;
+launches_cluster: phase 11's job; launches_predicates: phase 12's
+generation; launches_sharded: phase 13's sharded commit and prove) and
+{"ok": true, "device": {...}}.
 Imports nothing of jax.
 """
 
@@ -178,10 +199,10 @@ def _sync_ms(fn, reps: int = 1):
     return start.elapsed_time(end) / reps, out
 
 
-def _words(rng, shape, dev):
-    return torch.from_numpy(
-        rng.integers(0, 2013265921, shape, dtype=np.uint32).view(np.int32)
-    ).to(dev)
+def _words(gen, shape, dev):
+    """Seeded random field words made on the card."""
+    return torch.randint(0, P, shape, dtype=torch.int32, device=dev,
+                         generator=gen)
 
 
 def _max_abs_err(a, b) -> int:
@@ -193,6 +214,8 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
     first (main-path) shape}.  A record holds the largest error over all
     of the kernel's shapes."""
     rng = np.random.default_rng(20)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
     rec = {}
 
     def compare(name, shape_s, kernel, plain, bound, reps=TIMED_REPS):
@@ -222,15 +245,19 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
     # groups, the FRI rounds, the final FRI digest (prove/fri.py); then the
     # recursion prove's: data, code, accum and check groups, FRI rounds and
     # final digest; then the keccak prove's data (68 full blocks of 16 and
-    # 8 words a row), check and code/accum groups
+    # 8 words a row), check and code/accum groups; then phase 12's code
+    # root of lift_rv32im_povw_16 and phase 13's row blocks on one card (a
+    # mesh of the card twice: half the rows of the data, accum, code and
+    # check groups)
     n22 = 1 << 22
-    big = _words(rng, (211, n22), dev)
+    big = _words(gen, (211, n22), dev)
     for cols, bits in ((211, 22), (103, 22), (16, 22), (1, 22), (64, 18),
                        (64, 14), (64, 10), (1024, 0),
                        (128, 20), (23, 20), (12, 20), (16, 20), (64, 16),
                        (64, 12), (64, 8), (256, 0),
-                       (1096, 19), (16, 19), (1, 19)):
-        m = big[:cols] if bits == 22 else _words(rng, (cols, 1 << bits), dev)
+                       (1096, 19), (16, 19), (1, 19),
+                       (1, 18), (211, 21), (103, 21), (16, 21), (1, 21)):
+        m = big[:cols] if bits == 22 else _words(gen, (cols, 1 << bits), dev)
         perms = (1 << bits) * max(1, -(-cols // 16))
         compare("hash_rows", f"({cols}, 2^{bits})", lambda: kp2.hash_rows(m),
                 lambda: kp2.hash_rows_plain(m),
@@ -239,10 +266,11 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
         del m
     del big
     # the Merkle fold above the leaves of each tree of the prove, of the
-    # recursion prove and of the keccak prove (2^19 leaves): 2^n - 1
-    # compressions, the leaves read once and every layer written once
-    for bits in (22, 18, 14, 10, 20, 16, 12, 8, 19):
-        leaves = _words(rng, (1 << bits, 8), dev)
+    # recursion prove and of the keccak prove (2^19 leaves), and phase 13's
+    # subtrees of 2^21 leaves and its top fold of 2: 2^n - 1 compressions,
+    # the leaves read once and every layer written once
+    for bits in (22, 18, 14, 10, 20, 16, 12, 8, 19, 21, 1):
+        leaves = _words(gen, (1 << bits, 8), dev)
         compare("hash_pairs", f"fold 2^{bits} leaves",
                 lambda: kp2.merkle_fold(leaves),
                 lambda: kp2.merkle_fold_plain(leaves),
@@ -251,7 +279,7 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
                 TIMED_REPS if bits >= 18 else 20)
         del leaves
     # one layer of the pair kernel: hash_pairs(left, right)
-    layer = _words(rng, (n22, 8), dev)
+    layer = _words(gen, (n22, 8), dev)
     left, right = layer[0::2], layer[1::2]
     compare("hash_pairs", "(2^21, 8)", lambda: kp2.hash_pairs(left, right),
             lambda: kp2.hash_pairs_plain(left, right),
@@ -280,15 +308,19 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
     # group at once), 2^23 and 2^24, and an expand at or above k1; then the
     # recursion prove's LDEs (data, code, accum, check) and FRI rounds; then
     # the keccak prove's: its data group at once, the chunks of 32 and 8
-    # columns its commit runs, the check group, and code/accum
+    # columns its commit runs, the check group, and code/accum; then phase
+    # 12's code roots (one column at 2^20 and 2^16) and phase 13's column
+    # blocks on one card (data: 106 columns, in chunks of 32 and 10;
+    # accum: 52; code: 1; check: 8)
     k1_22 = kntt.split(22)[0]
     cases = [(211, 20, 2), (32, 20, 2), (103, 20, 2), (2, 21, 2), (2, 22, 2),
              (2, 22 - k1_22 - 1, k1_22 + 1),
              (128, 18, 2), (23, 18, 2), (12, 18, 2), (16, 18, 2),
              (4, 18, 2), (4, 14, 2), (4, 10, 2),
-             (1096, 17, 2), (32, 17, 2), (8, 17, 2), (16, 17, 2), (1, 17, 2)]
+             (1096, 17, 2), (32, 17, 2), (8, 17, 2), (16, 17, 2), (1, 17, 2),
+             (1, 20, 2), (1, 16, 2), (10, 20, 2), (52, 20, 2), (8, 20, 2)]
     for rows, c_bits, eb in cases:
-        c = _words(rng, (rows, 1 << c_bits), dev)
+        c = _words(gen, (rows, 1 << c_bits), dev)
         x = ntt_mod.expand(c, eb)
         del c
         n_bits = c_bits + eb
@@ -301,11 +333,13 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
     # interpolate: the commit iNTTs, the check poly, 2^23 and 2^24; then
     # the recursion prove's commits and check poly; then the keccak
     # prove's: its data group at once, its chunks of 32 and 8 columns, the
-    # check poly, and code/accum
+    # check poly, and code/accum; then phase 12's code roots and phase
+    # 13's column blocks on one card
     for rows, n_bits in ((211, 20), (32, 20), (103, 20), (4, 22), (2, 23),
                          (2, 24), (128, 18), (23, 18), (12, 18), (4, 20),
-                         (1096, 17), (32, 17), (8, 17), (4, 19), (1, 17)):
-        x = _words(rng, (rows, 1 << n_bits), dev)
+                         (1096, 17), (32, 17), (8, 17), (4, 19), (1, 17),
+                         (1, 20), (1, 16), (10, 20), (52, 20)):
+        x = _words(gen, (rows, 1 << n_bits), dev)
         compare("interpolate_ntt", f"({rows}, 2^{n_bits})",
                 lambda: kntt.interpolate_ntt(x),
                 lambda: kntt.interpolate_ntt_plain(x),
@@ -347,10 +381,12 @@ def _device_launches(fn) -> int:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "memcpy" not in e.name.lower()
-               and "memset" not in e.name.lower())
+    # the raw kineto events: prof.events() would build a Python event tree
+    # of every launch first, minutes for the exec witgen's
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name().lower()
+               and "memset" not in e.name().lower())
 
 
 def phase_witgen(dev, seg):
@@ -1354,6 +1390,133 @@ def phase_orchestration(dev, counters):
     return launches
 
 
+PREDICATES = ("lift_rv32im_20", "lift_rv32im_povw_16", "join", "union",
+              "identity", "resolve")
+
+
+def phase_predicates(dev, counters):
+    """Generate predicates with the port on the card: each must equal its
+    vendored program word for word, each control ID (a (23, 2^18) code
+    group committed on the card) the vendored ID, and the allowed root
+    rebuilt from the vendored ID list the vendored root.  Returns {kernel:
+    launches over the generation}."""
+    from risc0_tpu_torch.circuit.recursion import predicates as pr
+
+    t_phase = time.perf_counter()
+
+    def log(r):
+        print(f"predicates: {r['name']}: {r['rows']} rows, emitted in "
+              f"{r['emit_s']:.3f} s, control ID committed in "
+              f"{r['commit_s']:.3f} s, SHA-256 {r['sha256']}", flush=True)
+
+    for fn in counters:
+        fn.launches = 0
+    result = pr.generate(PREDICATES, device=dev, log=log)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    diffs = pr.compare_vendored(result)
+    print(f"predicates: {len(PREDICATES)} programs written to "
+          f"{os.path.relpath(pr.DEFAULT_OUT, ROOT)}; each equal to its "
+          f"vendored program word for word, its control ID to "
+          f"own_control_ids(), and the allowed root rebuilt from the "
+          f"vendored ID list to the vendored root: {not diffs}", flush=True)
+    if diffs:
+        raise AssertionError(f"generated predicates differ: {diffs}")
+    print(f"predicates: launches {json.dumps(launches)}; phase 12 in "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the generation: "
+                             f"{missing}")
+    return launches
+
+
+SHARD_COMMIT_SHAPE = (211, 1 << PO2)  # the rv32im data group at po2 20
+
+
+def mesh_devices():
+    """Every card when there are several, else the one card twice."""
+    count = torch.cuda.device_count()
+    return ([f"cuda:{i}" for i in range(count)] if count > 1
+            else ["cuda:0", "cuda:0"])
+
+
+def phase_sharded(dev, seg, seal20, counters):
+    """The sharded commit and prove over mesh_devices(): a seeded
+    (211, 2^20) commit must equal the one-device commit layer for layer,
+    and phase 6's segment proved under mesh_context must give phase 6's
+    seal, verify, and reject a flipped word.  Returns {kernel: launches
+    over the sharded commit and the prove}."""
+    from risc0_tpu_torch import loop_guest
+    from risc0_tpu_torch.circuit.rv32im.prove import prove_segment
+    from risc0_tpu_torch.circuit.rv32im.verify import verify_rv32im_seal
+    from risc0_tpu_torch.hal import torch_hal as hal
+    from risc0_tpu_torch.parallel.sharded import commit_sharded, mesh_context
+    from risc0_tpu_torch.verify.verifier import VerificationError
+
+    t_phase = time.perf_counter()
+    names = mesh_devices()
+    cards = sorted({torch.device(d).index for d in names})
+    print(f"sharded: mesh of {len(names)} devices {names} "
+          f"({len(cards)} card(s))", flush=True)
+    witness = np.random.default_rng(13).integers(
+        0, P, SHARD_COMMIT_SHAPE, dtype=np.uint32)
+    one_s, want = _wall_s(lambda: hal.commit_pipeline(witness, device=dev))
+    for fn in counters:
+        fn.launches = 0
+    mesh_s, got = _wall_s(lambda: commit_sharded(witness, names))
+    same = [torch.equal(a, b) for a, b in zip(want[:2], got[:2])]
+    same_layers = len(want[2]) == len(got[2]) and all(
+        torch.equal(a, b) for a, b in zip(want[2], got[2]))
+    print(f"sharded: commit of a seeded {SHARD_COMMIT_SHAPE} witness: one "
+          f"device {one_s:.3f} s, the mesh {mesh_s:.3f} s; coefficients "
+          f"equal {same[0]}, evaluations equal {same[1]}, all "
+          f"{len(got[2])} Merkle layers equal {same_layers}", flush=True)
+    if not (all(same) and same_layers):
+        raise AssertionError("the sharded commit differs from the "
+                             "one-device commit")
+    del want, got, witness
+    torch.cuda.empty_cache()
+
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    before = {fn.__name__: fn.launches for fn in counters}
+    with mesh_context(names):
+        prove_s, seal = _wall_s(lambda: prove_segment(
+            seg, rand_z=loop_guest.RAND_Z, device=dev))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    prove_launches = {k: v - before[k] for k, v in launches.items()}
+    peaks = [torch.cuda.max_memory_allocated(c) / 2**30 for c in cards]
+    same = np.array_equal(seal, seal20)
+    print(f"sharded: po2 {seg.po2} segment proved under mesh_context in "
+          f"{prove_s:.3f} s, peak device memory "
+          + ", ".join(f"cuda:{c} {p:.2f} GiB" for c, p in zip(cards, peaks))
+          + f"; seal SHA-256 {hashlib.sha256(seal.tobytes()).hexdigest()}, "
+          f"the same bytes as phase 6's: {same}", flush=True)
+    if not same:
+        raise AssertionError("the sharded seal differs from phase 6's")
+    t0 = time.perf_counter()
+    verify_rv32im_seal(seal)
+    verify_s = time.perf_counter() - t0
+    bad = np.array(seal)
+    bad[len(bad) // 3] ^= 1
+    try:
+        verify_rv32im_seal(bad)
+    except VerificationError as e:
+        rejected = str(e)
+    else:
+        raise AssertionError("a corrupted sharded seal was accepted")
+    print(f"sharded: seal verified in {verify_s:.2f} s; flipped word "
+          f"rejected ({rejected})", flush=True)
+    print(f"sharded: launches of the prove {json.dumps(prove_launches)}; "
+          f"of the commit and the prove {json.dumps(launches)}; phase 13 in "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+    missing = [k for k, v in prove_launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the sharded prove: "
+                             f"{missing}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1373,12 +1536,17 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
           f", CUDA {torch.version.cuda}", flush=True)
 
+    def done(phase):
+        print(f"chip_smoke: phase {phase} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
     t0 = time.perf_counter()
     build.library()
     print(f"build: {build.build_info['path']} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     rec = phase_kernels(dev, kntt, kp2, ntt_mod)
+    done(3)
     phase_check(dev)
 
     from risc0_tpu_torch import loop_guest
@@ -1389,18 +1557,27 @@ def main() -> int:
     if seg.po2 != PO2:
         raise AssertionError(f"segment po2 {seg.po2} != {PO2}")
     phase_witgen(dev, seg)
+    done(5)
     counters = [kp2.hash_rows, kp2.hash_pairs, kntt.evaluate_ntt,
                 kntt.interpolate_ntt]
     launches, seal = phase_prove(dev, seg, counters)
-    del seg
+    done(6)
     from risc0_tpu_torch.circuit.recursion import prove as rprove
     rec_log = []
     _watch(rprove, "prove_program", rec_log)
     launches_rec, lifted = phase_recursion(dev, seal, counters, rec_log)
+    done(7)
     launches_comp = phase_composition(dev, counters, rec_log)
+    done(8)
     launches_snark = phase_snark(dev, lifted, counters, rec_log)
+    done(9)
     launches_povw = phase_povw(dev, counters, rec_log)
+    done(10)
     launches_cluster = phase_orchestration(dev, counters)
+    done(11)
+    launches_predicates = phase_predicates(dev, counters)
+    done(12)
+    launches_sharded = phase_sharded(dev, seg, seal, counters)
 
     meta = {
         "hash_rows": ("poseidon2.cu", "risc0_tpu/hal/pallas/poseidon2.py:121"),
@@ -1416,6 +1593,8 @@ def main() -> int:
         "launches_snark": launches_snark[name],
         "launches_povw": launches_povw[name],
         "launches_cluster": launches_cluster[name],
+        "launches_predicates": launches_predicates[name],
+        "launches_sharded": launches_sharded[name],
         "max_abs_err": rec[name]["max_abs_err"],
         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
         "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],

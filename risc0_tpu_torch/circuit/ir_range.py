@@ -24,6 +24,7 @@ import torch
 
 from .. import field as F
 from ..convert import to_torch
+from ..hal import torch_hal
 from . import ir_exec
 from .ir_exec import (EADD, EADDF, ECONST, EMADD, EMUL, ESCALE, ESUB, ESUBF,
                       FADD, FCONST, FGLOBAL, FMUL, FSUB, FSUBE, FTAP,
@@ -520,7 +521,10 @@ def make_eval_check(plan: RangePlan, po2: int, chunk: int = 1 << 16):
     (zeros-poly division included) on the device of `evs`, a tuple of
     evaluated (cols, domain) group tensors in ``plan_buf_ids(plan)`` order;
     gvals (n_globals,) and pm_pows (n, 4) are host u32 arrays.  The domain
-    runs in chunks of T = min(chunk, domain) rows.
+    runs in chunks of T = min(chunk, domain) rows.  Under
+    ``parallel.sharded.mesh_context`` the chunks split evenly over the
+    mesh's devices, each holding every group, and the result lies on the
+    first device, which must be that of `evs`.
     """
     domain = (1 << po2) * 4
     T = min(chunk, domain)
@@ -528,8 +532,8 @@ def make_eval_check(plan: RangePlan, po2: int, chunk: int = 1 << 16):
     nc, nt = len(plan.const_vals), len(plan.tap_specs)
     cache = {}
 
-    def run(evs, gvals, pm_pows):
-        dev = evs[0].device
+    def rows(evs, gvals, pm_pows, dev, lo, hi):
+        """The constraint sums of domain rows [lo, hi) on `dev`."""
         dplan = cache.get(str(dev))
         if dplan is None:
             dplan = cache[str(dev)] = _DevicePlan(plan, dev)
@@ -544,13 +548,33 @@ def make_eval_check(plan: RangePlan, po2: int, chunk: int = 1 << 16):
             ext[:ne] = dplan.econst_vals[:, None, :]
         pm = to_torch(pm_pows, dev)
         ar = torch.arange(T, device=dev)
-        tot = torch.empty((domain, 4), dtype=torch.int32, device=dev)
-        for start in range(0, domain, T):
+        tot = torch.empty((hi - lo, 4), dtype=torch.int32, device=dev)
+        for start in range(lo, hi, T):
             for pos_b, back, sel, cols in dplan.taps:
                 idx = (start - 4 * back + ar) % domain
                 fp[nc + sel] = evs[pos_b][cols[:, None], idx[None, :]]
             _run_chunk(dplan, fp, ext, pm, T)
-            tot[start : start + T] = ext[plan.ret_row]
+            tot[start - lo : start - lo + T] = ext[plan.ret_row]
+        return tot
+
+    def run(evs, gvals, pm_pows):
+        devs = torch_hal.mesh_for(evs[0].device)
+        if devs:
+            n_chunks = domain // T
+            if n_chunks % len(devs):
+                raise ValueError(f"domain chunks {n_chunks} not divisible "
+                                 f"by the mesh's {len(devs)} devices")
+            per = domain // len(devs)
+            parts = []
+            for i, dev in enumerate(devs):
+                with torch_hal.device_scope(dev):
+                    parts.append(rows(tuple(ev.to(dev) for ev in evs), gvals,
+                                      pm_pows, dev, i * per, (i + 1) * per))
+            dev = devs[0]
+            tot = torch.cat([p.to(dev) for p in parts])
+        else:
+            dev = evs[0].device
+            tot = rows(evs, gvals, pm_pows, dev, 0, domain)
         out = F.mul(tot.view(domain // 4, 4, 4),
                     to_torch(invz, dev)[None, :, None])
         return out.view(domain, 4).T.contiguous()

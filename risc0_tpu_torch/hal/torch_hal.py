@@ -15,6 +15,8 @@ R^-1 after the reduction.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -231,33 +233,70 @@ def merkle_layers(matrix, suite=POSEIDON2):
     return list(torch.split(flat, [len(l) for l in layers]))
 
 
-def commit_pipeline(witness, encode: bool = False, device="cuda",
-                    suite=POSEIDON2):
-    """iNTT -> zk-shift -> 4x LDE -> Merkle for one (cols, rows) group.
-    `witness` is numpy u32 or an int32 tensor; encode=True takes a
-    standard-form witness and Montgomery-encodes it on the device.
-    Returns (coeffs_nat, evaluated, layers)."""
-    device = card(device)
-    cols, rows = witness.shape
-    if cols * rows * INV_RATE * 4 > COMMIT_CHUNK_BYTES:
-        return commit_pipeline_chunked(witness, encode=encode, device=device,
-                                       suite=suite)
-    w = as_words(witness, device)
-    if encode:
-        w = F.encode(w)
-    coeffs = make_coeffs(w)
-    evaluated = expand_evaluate(coeffs, 2)
-    return (ntt.bit_reverse(coeffs), evaluated,
-            merkle_layers(evaluated, suite))
+# The sharded commit (parallel/sharded.py), kept for parity with the JAX
+# package: while mesh_context installs a list of devices, the commits of
+# suites hashed on the card split their columns over the devices for the
+# iNTT, zk shift and LDE, reshard once to contiguous row blocks, hash each
+# block's leaves and subtree on its device and fold the top log2(n) layers
+# on the first.  The result lies on the first device in the one-device
+# layout, and every op is deterministic, so a sharded prove's seal is the
+# one-device seal.  One process, one mesh: it is process-global state that
+# every thread's commits read, through mesh() and mesh_for() only.
+_MESH: list | None = None
 
 
-def commit_pipeline_chunked(witness, encode: bool = False, device="cuda",
-                            chunk_cols: int = COMMIT_CHUNK_COLS,
-                            suite=POSEIDON2):
-    """commit_pipeline over column chunks: per-column NTTs are exact under
-    chunking, so the result equals the fused path."""
-    device = card(device)
+def _resolve(device) -> torch.device:
+    """`device` with its index: a bare "cuda" names the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def mesh() -> list | None:
+    """The installed mesh's devices, or None when there is none."""
+    return _MESH
+
+
+def set_mesh(devices) -> list | None:
+    """Install `devices` (None: no mesh); returns the previous mesh.  Use
+    parallel.sharded.mesh_context rather than this."""
+    global _MESH
+    prev = _MESH
+    _MESH = None if devices is None else [_resolve(d) for d in devices]
+    return prev
+
+
+def mesh_for(device) -> list | None:
+    """The mesh's devices when one is installed, else None.  A pipeline
+    under a mesh leaves its result on the mesh's first device, so any
+    other `device` raises rather than being ignored."""
+    if _MESH is None:
+        return None
+    if _resolve(device) != _MESH[0]:
+        raise ValueError(f"device {device} is not the first device of the "
+                         f"installed mesh {_MESH}")
+    return _MESH
+
+
+def device_scope(device):
+    """Make `device` current for the kernels' launches (a no-op off CUDA)."""
+    return torch.cuda.device(device) if device.type == "cuda" else \
+        contextlib.nullcontext()
+
+
+def _lde_block(witness, encode: bool, device, chunk_cols):
+    """(coeffs_nat, evaluated) of one (cols, rows) witness block on
+    `device`.  Every op is per column, so column chunks of `chunk_cols`
+    (None: the block at once) give the same words."""
     cols, rows = witness.shape
+    if chunk_cols is None or chunk_cols >= cols:
+        w = as_words(witness, device)
+        if encode:
+            w = F.encode(w)
+        coeffs = make_coeffs(w.contiguous())
+        evaluated = expand_evaluate(coeffs, 2)
+        return ntt.bit_reverse(coeffs), evaluated
     coeffs_nat = torch.empty((cols, rows), dtype=torch.int32, device=device)
     evaluated = torch.empty((cols, rows * INV_RATE), dtype=torch.int32,
                             device=device)
@@ -269,6 +308,79 @@ def commit_pipeline_chunked(witness, encode: bool = False, device="cuda",
         coeffs = make_coeffs(chunk.contiguous())
         evaluated[c0:c1] = expand_evaluate(coeffs, 2)
         coeffs_nat[c0:c1] = ntt.bit_reverse(coeffs)
+    return coeffs_nat, evaluated
+
+
+def _sharded(x, lde, devs):
+    """The mesh commit of a (cols, n) matrix over `devs`: lde(block,
+    device) -> (coeffs_nat, evaluated) for each device's column block (the
+    columns padded with zeros to a multiple of the device count), one
+    reshard to row blocks (the count a power of two), the leaves and
+    subtree of each row block on its device, the top layers folded on the
+    first device.  Returns (coeffs_nat, evaluated, layers) on the first
+    device."""
+    n, first = len(devs), devs[0]
+    cols = x.shape[0]
+    per = -(-cols // n)
+    blocks = []
+    for i, dev in enumerate(devs):
+        with device_scope(dev):
+            blk = as_words(x[i * per : (i + 1) * per], dev)
+            if blk.shape[0] < per:
+                blk = torch.cat([blk, blk.new_zeros(
+                    (per - blk.shape[0], blk.shape[1]))])
+            blocks.append(lde(blk, dev))
+    domain = blocks[0][1].shape[1]
+    if n & (n - 1) or domain % n:
+        raise ValueError(f"{n} devices: the count must be a power of two "
+                         f"that divides the {domain} rows")
+    step = domain // n
+    subtrees = []
+    for j, dev in enumerate(devs):
+        with device_scope(dev):
+            rows = torch.cat([ev[:, j * step : (j + 1) * step].to(dev)
+                              for _, ev in blocks])[:cols]
+            leaves = kp2.hash_rows(rows)
+            del rows
+            subtrees.append([leaves] + kp2.merkle_fold(leaves))
+    with device_scope(first):
+        layers = [torch.cat([t[k].to(first) for t in subtrees])
+                  for k in range(len(subtrees[0]))]
+        layers += kp2.merkle_fold(layers[-1])
+        coeffs_nat = torch.cat([c.to(first) for c, _ in blocks])[:cols]
+        evaluated = torch.cat([ev.to(first) for _, ev in blocks])[:cols]
+    return coeffs_nat, evaluated, layers
+
+
+def commit_pipeline(witness, encode: bool = False, device="cuda",
+                    suite=POSEIDON2):
+    """iNTT -> zk-shift -> 4x LDE -> Merkle for one (cols, rows) group.
+    `witness` is numpy u32 or an int32 tensor; encode=True takes a
+    standard-form witness and Montgomery-encodes it on the device.
+    Returns (coeffs_nat, evaluated, layers).  Under a mesh
+    (``parallel.sharded.mesh_context``) a suite hashed on the card is
+    committed over the mesh, and `device` must be its first device."""
+    device = card(device)
+    cols, rows = witness.shape
+    big = cols * rows * INV_RATE * 4 > COMMIT_CHUNK_BYTES
+    devs = mesh_for(device) if suite.on_card else None
+    if devs:
+        return _sharded(witness, lambda blk, dev: _lde_block(
+            blk, encode, dev, COMMIT_CHUNK_COLS if big else None), devs)
+    if big:
+        return commit_pipeline_chunked(witness, encode=encode, device=device,
+                                       suite=suite)
+    coeffs_nat, evaluated = _lde_block(witness, encode, device, None)
+    return coeffs_nat, evaluated, merkle_layers(evaluated, suite)
+
+
+def commit_pipeline_chunked(witness, encode: bool = False, device="cuda",
+                            chunk_cols: int = COMMIT_CHUNK_COLS,
+                            suite=POSEIDON2):
+    """commit_pipeline over column chunks: per-column NTTs are exact under
+    chunking, so the result equals the fused path."""
+    device = card(device)
+    coeffs_nat, evaluated = _lde_block(witness, encode, device, chunk_cols)
     return coeffs_nat, evaluated, merkle_layers(evaluated, suite)
 
 
@@ -277,9 +389,13 @@ def check_pipeline(check_poly, check_size: int = 16,
     """Check-group commit: iNTT the (4, domain) check polynomial, read the
     bit-reversed coefficients as `check_size` base polys with no data
     movement (reference prover.rs:159-178), then LDE + Merkle."""
+    devs = mesh_for(check_poly.device) if suite.on_card else None
     cycles = check_poly.shape[-1] * check_poly.shape[0] // check_size
     coeffs_br = kntt.interpolate_ntt(check_poly.contiguous()) \
         .reshape(check_size, cycles)
+    if devs:
+        return _sharded(coeffs_br, lambda blk, _dev: (
+            ntt.bit_reverse(blk), expand_evaluate(blk, 2)), devs)
     evaluated = expand_evaluate(coeffs_br, 2)
     return (ntt.bit_reverse(coeffs_br), evaluated,
             merkle_layers(evaluated, suite))

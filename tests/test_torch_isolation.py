@@ -71,7 +71,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "zkvm.methods", "zkvm.bigint2", "zkvm.trace", "zkvm.gdb",
                  "zkvm.ipc", "zkvm.client", "zkvm.api_server", "zkvm.bonsai",
                  "parallel.scheduler", "parallel.config", "parallel.assets",
-                 "parallel.remote"):
+                 "parallel.remote", "parallel.sharded",
+                 "circuit.recursion.asm", "circuit.recursion.zkr_verify"):
         assert "risc0_tpu_torch." + name in out["imported"]
     assert [m for m in out["loaded"] if _forbidden(m)] == []
 
@@ -146,6 +147,10 @@ _ENTRY_POINTS = {
     "api_server.serve": "api_server.serve(port=0)",
     "cli prove": "cli.main(['prove', '--elf', 'guests/loop.bin', "
                  "'--input-hex', '0a000000', '--po2', '16'])",
+    "predicates.lift_rv32im": "predicates.lift_rv32im(14)",
+    "predicates.generate": "predicates.generate(['join'])",
+    "commit_sharded": "commit_sharded(np.zeros((2, 8), np.uint32))",
+    "mesh_context": "mesh_commit()",
 }
 
 _CALL_ALL = """
@@ -171,6 +176,15 @@ from risc0_tpu_torch.parallel.config import launch_cluster, load_config
 from risc0_tpu_torch.parallel.scheduler import Factory, make_local_pools
 from risc0_tpu_torch.zkvm import api_server, client
 from risc0_tpu_torch.zkvm.ipc import ApiServer
+from risc0_tpu_torch.circuit.recursion import predicates
+from risc0_tpu_torch.parallel.sharded import commit_sharded, mesh_context
+
+
+def mesh_commit():
+    with mesh_context(["cuda"]):
+        hal.commit_pipeline(np.zeros((2, 8), np.uint32), device="cpu")
+
+
 assert not torch.cuda.is_available()
 out = {}
 for name, call in json.loads(%r).items():
