@@ -21,8 +21,8 @@ non-zero:
                against the device ones, bit for bit: exec (data, global,
                both lookup tables) and, with a fixed mix, accum (decoded);
                each side's time (the device side synchronised), the device
-               side's peak memory and its kernel launches (torch.profiler,
-               a second run)
+               side's peak memory and the accum's kernel launches
+               (torch.profiler, a second run)
   6. prove   - the main path: that segment proved on the card (device
                accum witgen), verified by the port's verifier, a
                corrupted seal rejected; prove time, cycles/s, the stage
@@ -133,6 +133,19 @@ non-zero:
                byte for byte, verify, and reject a flipped word.  Commit
                times, the prove's wall time and peak memory of each card,
                and each kernel's launches (every count > 0)
+ 14. examples - the programs of risc0_tpu_torch.examples on the card: the
+               ecdsa example (two po2 17 segments through the bigint2
+               accelerator) and the composition example (guest B verifies
+               guest A's receipt in the guest) proved for real through
+               their main (RISC0_REAL_PROVE=1): each receipt must verify
+               against its image ID, ecdsa's journal must be (qx, qy,
+               sha256(message)), its tampered signature must halt with
+               exit code 1 and a flipped seal word be rejected, and B's
+               receipt must carry A's.  Each segment's preflight and prove
+               time, peak device memory and each kernel's launches (every
+               count > 0); then the other eleven examples through their
+               main in dev mode, each asserting what its JAX counterpart
+               asserts
 
 Phase 3 also holds the kernels at the recursion prove's shapes (12, 23
 and 128 columns at 2^18 rows, the check group, trees of 2^20 leaves, its
@@ -144,7 +157,8 @@ are a JSON object {"kernels": [...]} (launches: phase 6's prove;
 launches_recursion: phase 7's; launches_composition: phase 8's;
 launches_snark: phase 9's identity_p254; launches_povw: phase 10's proves;
 launches_cluster: phase 11's job; launches_predicates: phase 12's
-generation; launches_sharded: phase 13's sharded commit and prove) and
+generation; launches_sharded: phase 13's sharded commit and prove;
+launches_examples: phase 14's two real proves) and
 {"ok": true, "device": {...}}.
 Imports nothing of jax.
 """
@@ -410,11 +424,10 @@ def phase_witgen(dev, seg):
     same = {"data": np.array_equal(to_numpy(res["data"]), host["data"])}
     for key in ("global", "tables_u8", "tables_u16"):
         same[key] = np.array_equal(res[key], host[key])
-    launches = _device_launches(lambda: witgen_exec_device(
-        seg, rand_z=rz, device=dev))
+    # the device exec's launches are not counted: a profiled run of it
+    # takes about a minute of the time limit (PERF.md has its count)
     print(f"witgen exec: host C++ {host_s:.3f} s; device {dev_s:.3f} s, "
-          f"peak {peak:.2f} GiB, {launches} kernel launches; equal "
-          f"{json.dumps(same)}", flush=True)
+          f"peak {peak:.2f} GiB; equal {json.dumps(same)}", flush=True)
     if not all(same.values()):
         raise AssertionError(f"device exec witgen differs: {same}")
 
@@ -1517,6 +1530,172 @@ def phase_sharded(dev, seg, seal20, counters):
     return launches
 
 
+EXAMPLES_DEV = ("hello_world", "factors", "password_checker", "sha",
+                "prorata", "prover_api", "bonsai_remote",
+                "keccak_coprocessor", "cluster", "povw", "profiling")
+
+
+class _Env:
+    """Set (value) or unset (None) environment variables for a block."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _flipped(receipt, index):
+    """`receipt` (composite) with one word of segment `index`'s seal
+    flipped."""
+    inner = receipt.inner.value
+    segs = list(inner.segments)
+    seal = np.array(segs[index].seal)
+    seal[len(seal) // 2] ^= 1
+    segs[index] = dataclasses.replace(segs[index], seal=seal)
+    return dataclasses.replace(receipt, inner=dataclasses.replace(
+        receipt.inner, value=dataclasses.replace(inner, segments=segs)))
+
+
+def _seconds(values):
+    return ", ".join(f"{v:.2f}" for v in values)
+
+
+def phase_examples(dev, counters):
+    """The examples of risc0_tpu_torch.examples on the card: ecdsa (two
+    po2 17 segments through the bigint2 accelerator) and composition (B
+    verifies A's receipt in the guest) proved for real; the other eleven
+    through their main in dev mode.  Returns {kernel: launches over the
+    two real proves}."""
+    import importlib
+    import tempfile
+
+    from risc0_tpu_torch.circuit.rv32im import prove as rv_prove
+    from risc0_tpu_torch.examples import composition, ecdsa
+    from risc0_tpu_torch.zkvm.receipt import (Receipt, VerificationError,
+                                              VerifierContext)
+
+    t_phase = time.perf_counter()
+    ctx = VerifierContext(dev_mode=False)
+    pre_log, seg_log, verify_log = [], [], []
+    _watch(rv_prove, "segment_preflight", pre_log)
+    _watch(rv_prove, "prove_segment_core", seg_log)
+    # each example's main verifies its receipts against their image IDs:
+    # time those calls rather than verify again
+    _watch(Receipt, "verify", verify_log)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with _Env(RISC0_REAL_PROVE="1", RISC0_DEV_MODE=None):
+        ecdsa_s, ec = _wall_s(lambda: ecdsa.main(["--device", str(dev)]))
+        n_ec, n_ec_verify = len(seg_log), len(verify_log)
+        comp_s, co = _wall_s(lambda: composition.main(["--device",
+                                                       str(dev)]))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    _unwatch(rv_prove, "segment_preflight")
+    _unwatch(rv_prove, "prove_segment_core")
+    _unwatch(Receipt, "verify")
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [r["peak"] for r in pre_log + seg_log])
+
+    # (a) ecdsa: two po2 17 segments, the journal, a tampered signature
+    session, receipt = ec["session"], ec["receipt"]
+    po2s = [s.po2 for s in session.segments]
+    print(f"examples: ecdsa ({session.user_cycles} user cycles, segments "
+          f"of po2 {po2s}) executed, proved composite on the card and "
+          f"verified in {ecdsa_s:.3f} s, peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    for pre, rec in zip(pre_log[:n_ec], seg_log[:n_ec]):
+        print(f"examples: ecdsa segment preflight {pre['s']:.3f} s", end="; ",
+              flush=True)
+        _print_segment_prove("prove", rec)
+    if po2s != [17, 17] or receipt.inner.kind != "composite" \
+            or len(receipt.inner.value.segments) != 2:
+        raise AssertionError(f"ecdsa: segments of po2 {po2s}, receipt "
+                             f"{receipt.inner.kind}")
+    qx, qy = ec["pubkey"]
+    journal = (qx.to_bytes(32, "little") + qy.to_bytes(32, "little")
+               + hashlib.sha256(ec["message"]).digest())
+    verify_s = [r["s"] for r in verify_log[:n_ec_verify]]
+    try:
+        _flipped(receipt, 0).verify(ec["image_id"], ctx)
+    except VerificationError as e:
+        rejected = str(e)
+    else:
+        raise AssertionError("ecdsa: a flipped seal word was accepted")
+    ok = (len(verify_s) == 1 and receipt.journal == journal
+          and ec["rejected"].exit_code == ("Halted", 1))
+    print(f"examples: ecdsa receipt verified against the image ID by "
+          f"main in {_seconds(verify_s)} s; journal == (qx, qy, "
+          f"sha256(message)): "
+          f"{receipt.journal == journal}; tampered signature halts "
+          f"{ec['rejected'].exit_code}; flipped seal word rejected "
+          f"({rejected})", flush=True)
+    if not ok:
+        raise AssertionError("ecdsa: wrong journal or tampered exit code")
+
+    # (b) composition: B's receipt carries A's and verifies
+    receipt = co["receipt"]
+    attached = receipt.inner.value.assumption_receipts
+    claim_a = co["receipt_a"].claim().digest()
+    verify_s = [r["s"] for r in verify_log[n_ec_verify:]]
+    ok = (len(verify_s) == 2 and len(attached) == 1
+          and np.array_equal(attached[0].claim().digest(), claim_a)
+          and receipt.journal == (composition.VALUE ** 2).to_bytes(
+              4, "little"))
+    print(f"examples: composition (guests A and B, one segment each) "
+          f"proved for real in {comp_s:.3f} s; A's and B's receipts "
+          f"verified against their image IDs by main in "
+          f"{_seconds(verify_s)} s, B's with A's receipt attached: {ok}",
+          flush=True)
+    for pre, rec in zip(pre_log[n_ec:], seg_log[n_ec:]):
+        print(f"examples: composition segment preflight {pre['s']:.3f} s",
+              end="; ", flush=True)
+        _print_segment_prove("prove", rec)
+    if not ok:
+        raise AssertionError("composition: B's receipt does not carry A's")
+    print(f"examples: launches of the two real proves "
+          f"{json.dumps(launches)}", flush=True)
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the examples' "
+                             f"proves: {missing}")
+
+    # (c) the other eleven, in dev mode, each asserting what the JAX
+    # example asserts
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            _Env(RISC0_REAL_PROVE=None, RISC0_DEV_MODE="1",
+                 BONSAI_API_URL=None):
+        for name in EXAMPLES_DEV:
+            argv = ([os.path.join(tmp, "guest.pb")]
+                    if name == "profiling" else [])
+            mod = importlib.import_module(f"risc0_tpu_torch.examples.{name}")
+            t0 = time.perf_counter()
+            out = mod.main(argv + ["--device", str(dev)])
+            times[name] = round(time.perf_counter() - t0, 3)
+            if name == "bonsai_remote":
+                if out["status"]["status"] != "SUCCEEDED":
+                    raise AssertionError(f"bonsai_remote: {out['status']}")
+            elif out["session"].exit_code != ("Halted", 0):
+                raise AssertionError(f"{name}: {out['session'].exit_code}")
+    print(f"examples: dev mode on the card, s each: {json.dumps(times)}; "
+          f"phase 14 in {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1578,6 +1757,8 @@ def main() -> int:
     launches_predicates = phase_predicates(dev, counters)
     done(12)
     launches_sharded = phase_sharded(dev, seg, seal, counters)
+    done(13)
+    launches_examples = phase_examples(dev, counters)
 
     meta = {
         "hash_rows": ("poseidon2.cu", "risc0_tpu/hal/pallas/poseidon2.py:121"),
@@ -1595,6 +1776,7 @@ def main() -> int:
         "launches_cluster": launches_cluster[name],
         "launches_predicates": launches_predicates[name],
         "launches_sharded": launches_sharded[name],
+        "launches_examples": launches_examples[name],
         "max_abs_err": rec[name]["max_abs_err"],
         "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
         "bound_ms": rec[name]["bound_ms"], "bound_by": rec[name]["bound_by"],

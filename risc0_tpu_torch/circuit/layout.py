@@ -52,6 +52,25 @@ class LayoutView:
             return LayoutView(self._node[idx], f"{self._name}[{idx}]")
         raise TypeError(f"{self._name} is not an array")
 
+    def __len__(self) -> int:
+        if isinstance(self._node, list):
+            return len(self._node)
+        raise TypeError(f"{self._name} is not an array")
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def keys(self):
+        """Field names of a struct node (none for an array or a leaf).  A
+        method of the class, so `__getattr__` never reads it as a field."""
+        return list(self._node) if isinstance(self._node, dict) else []
+
+    def __repr__(self):
+        kind = ("reg" if isinstance(self._node, int)
+                else type(self._node).__name__)
+        return f"LayoutView({self._name}: {kind})"
+
     def read(self, row) -> int:
         """Value at this register's column."""
         return int(np.asarray(row)[self.offset])
@@ -72,6 +91,21 @@ class LayoutView:
             else self
         return np.array([vals[i].read_u32_pair(row) for i in range(8)],
                         np.uint32)
+
+    def dump(self, row=None, depth: int = 0) -> str:
+        """Readable rendering of the subtree, with values read from `row`
+        when given (reference layout.rs Debug visitor)."""
+        pad = "  " * depth
+        node = self._node
+        if isinstance(node, int):
+            val = "" if row is None else f" = {int(np.asarray(row)[node])}"
+            return f"{pad}{self._name.rsplit('.', 1)[-1]}: [{node}]{val}\n"
+        out = f"{pad}{self._name.rsplit('.', 1)[-1]}:\n"
+        children = (self if isinstance(node, list)
+                    else (getattr(self, k) for k in self.keys()))
+        for child in children:
+            out += child.dump(row, depth + 1)
+        return out
 
 
 def _camel(key: str) -> str:

@@ -72,6 +72,7 @@ class DevModeDelay:
     """Simulated latencies of the DevModeProver's operations, in seconds,
     for scheduler tests (reference prove/dev_mode.rs:41-101)."""
 
+    execute: float = 0.0
     segment_preflight: float = 0.0
     prove_segment_core: float = 0.0
     lift: float = 0.0

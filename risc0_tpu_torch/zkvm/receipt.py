@@ -24,6 +24,9 @@ class VerificationError(Exception):
     pass
 
 
+DEFAULT_MAX_PO2 = 22  # reference receipt.rs:884
+
+
 def is_dev_mode() -> bool:
     v = os.environ.get("RISC0_DEV_MODE", "")
     return v.lower() not in ("", "0", "false", "no")
@@ -40,6 +43,7 @@ class VerifierContext:
     the Poseidon2 root of the receipt it wraps (succinct.rs:182)."""
 
     hashfn: str = "poseidon2"
+    max_po2: int = DEFAULT_MAX_PO2
     dev_mode: bool = field(default_factory=is_dev_mode)
     control_root: np.ndarray | None = None
     inner_control_root: np.ndarray | None = None
@@ -78,6 +82,7 @@ class SegmentReceipt:
     index: int
     hashfn: str
     claim: ReceiptClaim
+    verifier_parameters: np.ndarray | None = None
 
     def verify_integrity(self, ctx: VerifierContext):
         """Run the rv32im STARK verifier over the seal, then check that the
@@ -205,6 +210,9 @@ class SuccinctReceipt:
         except ZkpError as e:
             raise VerificationError(f"recursion seal invalid: {e}") from e
 
+    def claim_digest(self) -> np.ndarray:
+        return self.claim.digest()
+
 
 @dataclass
 class Groth16ReceiptVerifierParameters:
@@ -276,6 +284,9 @@ class Groth16Receipt:
         from ..groth16.solidity import seal_to_calldata
 
         return seal_to_calldata(bytes(self.seal), self.verifier_parameters)
+
+    def claim_digest(self) -> np.ndarray:
+        return self.claim.digest()
 
 
 @dataclass

@@ -640,3 +640,22 @@ def test_prover_impl_groth16_kind_on_stubs(wrap_stubs):
     assert np.array_equal(info.receipt.claim().digest(),
                           decode_claim(np.load(SEGMENT_SEAL)).digest())
     info.receipt.verify_integrity()
+
+
+def test_torch_gen_solidity_verifier_writes_the_committed_contracts(
+        tmp_path):
+    """scripts/torch_gen_solidity_verifier.py, the port's counterpart of
+    scripts/gen_solidity_verifier.py, regenerates contracts/*.sol byte
+    for byte from the golden receipt's key."""
+    import subprocess
+    import sys
+
+    res = subprocess.run(
+        [sys.executable,
+         os.path.join(REPO, "scripts", "torch_gen_solidity_verifier.py"),
+         "--out", str(tmp_path)],
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    for name in ("Groth16Verifier.sol", "RiscZeroGroth16Verifier.sol"):
+        with open(os.path.join(REPO, "contracts", name), "rb") as f:
+            assert (tmp_path / name).read_bytes() == f.read(), name
