@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from ... import field as F
-from ... import perf
+from ... import perf, telemetry
 from ...convert import card, to_numpy
 from ...hash.suite import POSEIDON2
 from ...prove.prover import Prover
@@ -65,10 +65,12 @@ def prove_segment(seg, rand_z=None, rng=None, device="cuda",
     (u32).  exec and accum say where each witness is generated: "host"
     (C++) or "device"."""
     device = card(device)
-    res = segment_preflight(seg, rand_z=rand_z, rng=rng, device=device,
-                            exec=exec)
-    return prove_segment_core(res, device=device, eval_chunk=eval_chunk,
-                              accum=accum, suite=suite)
+    with telemetry.boundary("prove_segment") as sp:
+        res = segment_preflight(seg, rand_z=rand_z, rng=rng, device=device,
+                                exec=exec)
+        sp.set(po2=int(res["rows"]).bit_length() - 1)
+        return prove_segment_core(res, device=device, eval_chunk=eval_chunk,
+                                  accum=accum, suite=suite)
 
 
 def _info_digest(suite, info: bytes):

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from dataclasses import dataclass
 from enum import Enum
 from typing import Any, Callable
@@ -66,7 +67,7 @@ class Task:
     # telemetry: (trace_id, span_id) of the submitting job's span, so the
     # worker-side task span parents to the job even across threads
     # (reference actors/mod.rs OTel context propagation); submit time for
-    # the queue-wait histogram
+    # the queue-wait histogram, on time.perf_counter_ns (the tracer's clock)
     trace_ctx: tuple | None = None
     submit_ns: int = 0
 
@@ -93,7 +94,7 @@ class Factory:
 
         if task.trace_ctx is None:
             task.trace_ctx = telemetry.tracer().ctx()
-        task.submit_ns = task.submit_ns or telemetry._now_ns()
+        task.submit_ns = task.submit_ns or time.perf_counter_ns()
         telemetry.metrics().inc("risc0_tasks_submitted",
                                 kind=task.kind.value)
         with self._cv:
@@ -152,8 +153,6 @@ class Worker:
         self._thread.join(timeout=5)
 
     def _run(self):
-        import time
-
         from .. import log, telemetry
 
         mx = telemetry.metrics()
@@ -161,11 +160,11 @@ class Worker:
             task = self.factory.get_task(self.kinds)
             if task is None:
                 continue
+            t0 = time.perf_counter_ns()
             if task.submit_ns:
                 mx.observe("risc0_task_queue_seconds",
-                           (telemetry._now_ns() - task.submit_ns) / 1e9,
+                           (t0 - task.submit_ns) / 1e9,
                            kind=task.kind.value)
-            t0 = time.perf_counter()
             with telemetry.tracer().span(
                     f"task:{task.kind.value}", parent=task.trace_ctx,
                     job=task.job_id, task=task.task_id,
@@ -173,18 +172,17 @@ class Worker:
                 try:
                     result = self.processor(task)
                     self.factory.task_done(TaskDone(task, result=result))
-                    dt = time.perf_counter() - t0
+                    dt = (time.perf_counter_ns() - t0) / 1e9
                     mx.observe("risc0_task_run_seconds", dt,
                                kind=task.kind.value, status="ok")
                     log.event("task_done", worker=self.name,
                               kind=task.kind.value, job=task.job_id,
                               task=task.task_id, seconds=round(dt, 4))
                 except Exception as e:  # propagate to the job
-                    sp.span.status = "ERROR"
-                    sp.set(error=repr(e))
+                    sp.fail(e)
                     self.factory.task_done(TaskDone(task, error=e))
                     mx.observe("risc0_task_run_seconds",
-                               time.perf_counter() - t0,
+                               (time.perf_counter_ns() - t0) / 1e9,
                                kind=task.kind.value, status="error")
                     log.event("task_failed", worker=self.name,
                               kind=task.kind.value, job=task.job_id,
@@ -266,11 +264,9 @@ class ProofJob:
         """Run the DAG to completion; returns (session, final_receipt).
         The whole job runs under one root span; every task span parents
         to it via Task.trace_ctx (reference actors/mod.rs OTel init)."""
-        import time
-
         from .. import telemetry
 
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         with telemetry.tracer().span("proof_job", job=self.job_id,
                                      receipt_kind=self.receipt_kind,
                                      povw=self.povw):
@@ -278,7 +274,7 @@ class ProofJob:
         telemetry.metrics().inc("risc0_jobs_completed",
                                 kind=self.receipt_kind)
         telemetry.metrics().observe("risc0_job_seconds",
-                                    time.perf_counter() - t0,
+                                    (time.perf_counter_ns() - t0) / 1e9,
                                     kind=self.receipt_kind)
         return out
 

@@ -5,11 +5,24 @@ pipeline per process — this is the dependency-free equivalent).
 
 Spans
 -----
-`tracer()` returns the process Tracer.  `with tracer().span("prove",
-job=3):` opens a span; nesting links parent/child via a thread-local
-context, and `ctx()` / `attach(ctx)` carry the context across threads
-(the scheduler stamps each Task with the submitting job's context, so a
-task's span parents to its job even though it runs on a worker thread).
+`tracer()` returns the process Tracer, the one recorder of the port.
+`with tracer().span("prove", job=3):` opens a span; nesting links
+parent/child via a thread-local context, and `ctx()` carries the context
+across threads (the scheduler stamps each Task with the submitting job's
+context, so a task's span parents to its job even though it runs on a
+worker thread).  A span without a parent starts a trace: every span
+under it shares its trace ID, so one request is one trace.
+
+`boundary(name, **attrs)` opens a layer's span (prove, execute,
+prove_segment, lift, self_check, ...) unless one of that name is already
+open on the thread.  `perf.scope(name)` opens a scope span: scopes nest
+into dotted paths (a.b.c) whose calls and seconds the recorder totals
+for `perf.report()`; any other span starts a new path.
+
+Times are `time.perf_counter_ns()`, the clock a device trace is tied to
+on the host; `Span.to_otlp()` moves them to Unix nanoseconds by an
+offset read once at import.  RISC0_TPU_PERF=0 turns the recorder off:
+no span is opened and no clock is read.
 
 Completed spans buffer in memory (ring, default 4096) and, when
 RISC0_TPU_OTLP is set to a file path, stream one OTLP/JSON
@@ -32,9 +45,10 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 
+ENABLED = os.environ.get("RISC0_TPU_PERF", "1") != "0"
 
-def _now_ns() -> int:
-    return time.time_ns()
+# perf_counter_ns() + this = Unix nanoseconds (OTLP's clock)
+_UNIX_OFFSET_NS = time.time_ns() - time.perf_counter_ns()
 
 
 def _new_id(nbytes: int) -> str:
@@ -51,6 +65,8 @@ class Span:
     attributes: dict = field(default_factory=dict)
     end_ns: int = 0
     status: str = "OK"
+    thread: int = 0
+    path: str | None = None  # a perf scope's dotted path; None otherwise
 
     def to_otlp(self) -> dict:
         """One span in OTLP/JSON shape (trace-api v1)."""
@@ -70,21 +86,25 @@ class Span:
             "spanId": self.span_id,
             **({"parentSpanId": self.parent_id} if self.parent_id else {}),
             "name": self.name,
-            "startTimeUnixNano": str(self.start_ns),
-            "endTimeUnixNano": str(self.end_ns),
+            "startTimeUnixNano": str(self.start_ns + _UNIX_OFFSET_NS),
+            "endTimeUnixNano": str(self.end_ns + _UNIX_OFFSET_NS),
             "attributes": [attr(k, v) for k, v in self.attributes.items()],
             "status": {"code": 2 if self.status == "ERROR" else 1},
         }
 
 
 class _SpanHandle:
-    def __init__(self, tracer: "Tracer", span: Span, token):
+    def __init__(self, tracer: "Tracer", span: Span):
         self._tracer = tracer
         self.span = span
-        self._token = token
 
     def set(self, **attrs):
         self.span.attributes.update(attrs)
+
+    def fail(self, error: Exception):
+        """Mark the span failed by an exception it caught."""
+        self.span.status = "ERROR"
+        self.span.attributes["error"] = repr(error)
 
     def __enter__(self):
         return self
@@ -93,8 +113,27 @@ class _SpanHandle:
         if et is not None:
             self.span.status = "ERROR"
             self.span.attributes.setdefault("error", repr(ev))
-        self._tracer._end(self, et is None or None)
+        self._tracer._end(self.span)
         return False
+
+
+class _NoSpan:
+    """What a span is while the recorder is off."""
+
+    def set(self, **attrs):
+        pass
+
+    def fail(self, error: Exception):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, et, ev, tb):
+        return False
+
+
+NO_SPAN = _NoSpan()
 
 
 class Tracer:
@@ -105,6 +144,7 @@ class Tracer:
         self._local = threading.local()
         self._lock = threading.Lock()
         self._finished: deque[Span] = deque(maxlen=capacity)
+        self._totals: dict[str, list] = {}  # scope path -> [calls, ns]
         self._sink_path = os.environ.get("RISC0_TPU_OTLP")
 
     # -- context plumbing ------------------------------------------------
@@ -123,6 +163,19 @@ class Tracer:
     def span(self, name: str, parent: tuple | None = None, **attrs):
         """Open a span.  `parent` overrides the thread-local parent —
         pass a Task's stamped ctx on worker threads."""
+        if not ENABLED:
+            return NO_SPAN
+        return _SpanHandle(self, self._open(name, parent, attrs, None))
+
+    def scope(self, name: str) -> _SpanHandle:
+        """Open a perf scope's span: its path extends the innermost open
+        span's if that is a scope too."""
+        st = self._stack()
+        path = (st[-1].path + "." + name if st and st[-1].path is not None
+                else name)
+        return _SpanHandle(self, self._open(name, None, {}, path))
+
+    def _open(self, name, parent, attrs, path) -> Span:
         st = self._stack()
         if parent is None and st:
             trace_id, parent_id = st[-1].trace_id, st[-1].span_id
@@ -131,13 +184,17 @@ class Tracer:
         else:
             trace_id, parent_id = _new_id(16), None
         s = Span(name=name, trace_id=trace_id, span_id=_new_id(8),
-                 parent_id=parent_id, start_ns=_now_ns(), attributes=attrs)
+                 parent_id=parent_id, start_ns=time.perf_counter_ns(),
+                 attributes=attrs, thread=threading.get_ident(), path=path)
         st.append(s)
-        return _SpanHandle(self, s, None)
+        return s
 
-    def _end(self, handle: _SpanHandle, _ok):
-        s = handle.span
-        s.end_ns = _now_ns()
+    def is_open(self, name: str) -> bool:
+        """Whether a span of that name is open on this thread."""
+        return any(s.name == name for s in self._stack())
+
+    def _end(self, s: Span):
+        s.end_ns = time.perf_counter_ns()
         st = self._stack()
         if st and st[-1] is s:
             st.pop()
@@ -148,6 +205,10 @@ class Tracer:
                 pass
         with self._lock:
             self._finished.append(s)
+            if s.path is not None:
+                ent = self._totals.setdefault(s.path, [0, 0])
+                ent[0] += 1
+                ent[1] += s.end_ns - s.start_ns
         path = self._sink_path
         if path:
             line = json.dumps({"resourceSpans": [{
@@ -165,6 +226,17 @@ class Tracer:
         with self._lock:
             out = list(self._finished)
         return [s for s in out if name is None or s.name == name]
+
+    def totals(self) -> dict[str, tuple[int, float]]:
+        """{scope path: (calls, total seconds)} since `reset_totals`."""
+        with self._lock:
+            return {k: (v[0], v[1] / 1e9) for k, v in self._totals.items()}
+
+    def reset_totals(self):
+        """Clear the scope totals only: open spans and the finished ring
+        stay, so a caller may reset in the middle of a request."""
+        with self._lock:
+            self._totals.clear()
 
     def reset(self):
         with self._lock:
@@ -260,6 +332,15 @@ _metrics = Metrics()
 
 def tracer() -> Tracer:
     return _tracer
+
+
+def boundary(name: str, **attrs):
+    """Open the span of a layer boundary on the process tracer, unless one
+    of that name is open on this thread already (a layer entered through
+    another of its entry points)."""
+    if not ENABLED or _tracer.is_open(name):
+        return NO_SPAN
+    return _tracer.span(name, **attrs)
 
 
 def metrics() -> Metrics:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import field as F
+from .. import telemetry
 from ..core import poly
 from ..core.ntt import _bitrev_perm, _twiddles
 from ..prove.merkle import merkle_params
@@ -200,79 +201,84 @@ class Verifier:
         taps = self.taps
         iop = self.iop
         assert all(m is not None for m in self.merkle_verifiers)
-        poly_mix = iop.random_ext_elem()
-        domain = INV_RATE * self.tot_cycles
-        check_merkle = MerkleTreeVerifier(iop, domain, CHECK_SIZE)
-        z = iop.random_ext_elem()
-        back_one = F.s_encode(F.ROU_REV[self.po2])
+        # the constraint check at the DEEP point z
+        with telemetry.boundary("verify_validity"):
+            poly_mix = iop.random_ext_elem()
+            domain = INV_RATE * self.tot_cycles
+            check_merkle = MerkleTreeVerifier(iop, domain, CHECK_SIZE)
+            z = iop.random_ext_elem()
+            back_one = F.s_encode(F.ROU_REV[self.po2])
 
-        num_taps = taps.tap_size
-        coeff_u = iop.read_field_elems((num_taps + CHECK_SIZE) * EXT_SIZE)
-        iop.commit(self.suite.hash_elem_slice(coeff_u))
-        coeff_u = coeff_u.reshape(-1, EXT_SIZE)
+            num_taps = taps.tap_size
+            coeff_u = iop.read_field_elems((num_taps + CHECK_SIZE) * EXT_SIZE)
+            iop.commit(self.suite.hash_elem_slice(coeff_u))
+            coeff_u = coeff_u.reshape(-1, EXT_SIZE)
 
-        # openings -> evaluations per tap
-        cur_pos = 0
-        eval_u = []
-        for reg in taps.regs:
-            for i in range(reg.size):
-                x = F.ext_mul_np(_pow_ext(back_one, reg.backs[i]), z)
-                eval_u.append(poly.poly_eval(coeff_u[cur_pos : cur_pos + reg.size], x))
-            cur_pos += reg.size
-        eval_u = np.stack(eval_u)
+            # openings -> evaluations per tap
+            cur_pos = 0
+            eval_u = []
+            for reg in taps.regs:
+                for i in range(reg.size):
+                    x = F.ext_mul_np(_pow_ext(back_one, reg.backs[i]), z)
+                    eval_u.append(poly.poly_eval(coeff_u[cur_pos : cur_pos + reg.size], x))
+                cur_pos += reg.size
+            eval_u = np.stack(eval_u)
 
-        result = validity_fn(poly_mix, eval_u)
+            result = validity_fn(poly_mix, eval_u)
 
-        # reconstruct check value from check-poly openings (verify/mod.rs:371-396)
-        remap = [0, 2, 1, 3]
-        check = poly.ext_zero()
-        for i, rmi in enumerate(remap):
-            zi = F.ext_pow_np(z, i)
-            for j in range(4):
-                basis = np.zeros(4, np.uint32)
-                basis[j] = F.R % F.P  # ONE in ext slot j
-                term = F.ext_mul_np(
-                    F.ext_mul_np(coeff_u[num_taps + rmi + 4 * j], zi), basis)
-                check = F.add_np(check, term)
-        three = F.s_encode(3)
-        tz = F.ext_mul_np(_pow_ext(three, 1), z)
-        factor = F.sub_np(F.ext_pow_np(tz, self.tot_cycles), poly.ext_one())
-        check = F.ext_mul_np(check, factor)
-        if not np.array_equal(check, result):
-            raise VerificationError("check polynomial mismatch")
+            # reconstruct check value from check-poly openings (verify/mod.rs:371-396)
+            remap = [0, 2, 1, 3]
+            check = poly.ext_zero()
+            for i, rmi in enumerate(remap):
+                zi = F.ext_pow_np(z, i)
+                for j in range(4):
+                    basis = np.zeros(4, np.uint32)
+                    basis[j] = F.R % F.P  # ONE in ext slot j
+                    term = F.ext_mul_np(
+                        F.ext_mul_np(coeff_u[num_taps + rmi + 4 * j], zi), basis)
+                    check = F.add_np(check, term)
+            three = F.s_encode(3)
+            tz = F.ext_mul_np(_pow_ext(three, 1), z)
+            factor = F.sub_np(F.ext_pow_np(tz, self.tot_cycles), poly.ext_one())
+            check = F.ext_mul_np(check, factor)
+            if not np.array_equal(check, result):
+                raise VerificationError("check polynomial mismatch")
 
-        mix = iop.random_ext_elem()
+        # the DEEP combination, then the FRI rounds and the queries'
+        # Merkle openings
+        with telemetry.boundary("verify_fri"):
+            mix = iop.random_ext_elem()
 
-        # build combo_u + mix powers (verify/mod.rs:402-441)
-        combo_u = np.zeros((taps.tot_combo_backs + 1, 4), np.uint32)
-        cur_mix = poly.ext_one()
-        cur_pos = 0
-        tap_mix_pows = []
-        for reg in taps.regs:
-            for i in range(reg.size):
-                cb = taps.combo_begin[reg.combo_id] + i
-                combo_u[cb] = F.add_np(combo_u[cb], F.ext_mul_np(cur_mix, coeff_u[cur_pos + i]))
-            tap_mix_pows.append(cur_mix)
-            cur_mix = F.ext_mul_np(cur_mix, mix)
-            cur_pos += reg.size
-        check_mix_pows = []
-        for _ in range(CHECK_SIZE):
-            combo_u[taps.tot_combo_backs] = F.add_np(
-                combo_u[taps.tot_combo_backs], F.ext_mul_np(cur_mix, coeff_u[cur_pos]))
-            cur_pos += 1
-            check_mix_pows.append(cur_mix)
-            cur_mix = F.ext_mul_np(cur_mix, mix)
+            # build combo_u + mix powers (verify/mod.rs:402-441)
+            combo_u = np.zeros((taps.tot_combo_backs + 1, 4), np.uint32)
+            cur_mix = poly.ext_one()
+            cur_pos = 0
+            tap_mix_pows = []
+            for reg in taps.regs:
+                for i in range(reg.size):
+                    cb = taps.combo_begin[reg.combo_id] + i
+                    combo_u[cb] = F.add_np(combo_u[cb], F.ext_mul_np(cur_mix, coeff_u[cur_pos + i]))
+                tap_mix_pows.append(cur_mix)
+                cur_mix = F.ext_mul_np(cur_mix, mix)
+                cur_pos += reg.size
+            check_mix_pows = []
+            for _ in range(CHECK_SIZE):
+                combo_u[taps.tot_combo_backs] = F.add_np(
+                    combo_u[taps.tot_combo_backs], F.ext_mul_np(cur_mix, coeff_u[cur_pos]))
+                cur_pos += 1
+                check_mix_pows.append(cur_mix)
+                cur_mix = F.ext_mul_np(cur_mix, mix)
 
-        gen = F.s_encode(F.ROU_FWD[domain.bit_length() - 1])
+            gen = F.s_encode(F.ROU_FWD[domain.bit_length() - 1])
 
-        def inner(idx):
-            rows = [m.verify(iop, idx) for m in self.merkle_verifiers]
-            check_row = check_merkle.verify(iop, idx)
-            return self._fri_eval_taps(
-                combo_u, check_row, back_one, F.s_pow(gen, idx), z, rows,
-                tap_mix_pows, check_mix_pows)
+            def inner(idx):
+                rows = [m.verify(iop, idx) for m in self.merkle_verifiers]
+                check_row = check_merkle.verify(iop, idx)
+                return self._fri_eval_taps(
+                    combo_u, check_row, back_one, F.s_pow(gen, idx), z, rows,
+                    tap_mix_pows, check_mix_pows)
 
-        self._fri_verify(inner)
+            self._fri_verify(inner)
 
     def _fri_eval_taps(self, combo_u, check_row, back_one, x, z, rows,
                        tap_mix_pows, check_mix_pows):

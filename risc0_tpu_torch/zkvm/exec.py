@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import telemetry
 from ..assets import V1COMPAT_ELF
 from . import native
 
@@ -709,6 +710,12 @@ class ExecutorImpl:
             pass  # best-effort diagnostic dump
 
     def run(self, segment_callback=None) -> Session:
+        with telemetry.boundary("execute") as sp:
+            session = self._execute(segment_callback)
+            sp.set(segments=len(session.segments))
+            return session
+
+    def _execute(self, segment_callback) -> Session:
         lib = native.lib()
         state = _SyscallState(self.env, lib)
         segments: list[SegmentInfo] = []

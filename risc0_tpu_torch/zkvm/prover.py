@@ -29,6 +29,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import telemetry
 from ..convert import card
 from . import recursion_driver
 from .claims import (Assumption, Assumptions, ExitCode, MaybePruned, Output,
@@ -96,8 +97,9 @@ class ProverServer:
     DevModeProver serve it."""
 
     def prove(self, env: ExecutorEnv, elf: bytes) -> ProveInfo:
-        session = ExecutorImpl(env, elf).run()
-        return self.prove_session(session)
+        with telemetry.boundary("prove"):
+            session = ExecutorImpl(env, elf).run()
+            return self.prove_session(session)
 
     def prove_session(self, session: Session) -> ProveInfo:
         raise NotImplementedError
@@ -295,7 +297,8 @@ class ProverImpl(ProverServer):
             raise ValueError(f"unknown receipt kind {self.opts.receipt_kind}")
         receipt = Receipt(inner, session.journal)
         # self-check before returning (reference prover_impl.rs:155-170)
-        receipt.verify_integrity(self._verifier_ctx(g16_params))
+        with telemetry.boundary("self_check"):
+            receipt.verify_integrity(self._verifier_ctx(g16_params))
         return ProveInfo(receipt=receipt, session=session, work=work)
 
     def _assumption_receipts(self, session) -> list:
@@ -369,8 +372,9 @@ class ProverImpl(ProverServer):
         return out
 
     def prove_segment(self, seg, claim) -> SegmentReceipt:
-        return self.prove_segment_core(self.segment_preflight(seg), seg,
-                                       claim)
+        with telemetry.boundary("prove_segment", po2=int(seg.po2)):
+            return self.prove_segment_core(self.segment_preflight(seg), seg,
+                                           claim)
 
     def segment_preflight(self, seg):
         """Host half of segment proving (reference ProverServer::

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import field as F
+from .. import telemetry
 from ..circuit.recursion.predicates import (identity_p254_control_id,
                                             load_own_program, own_control_ids)
 from ..circuit.recursion.prove import (MerkleGroup, load_keccak_lift,
@@ -78,12 +79,13 @@ def lift(segment_receipt, device="cuda", **kw) -> SuccinctReceipt:
     if name not in ids:
         raise VerificationError(f"no lift predicate for po2={po2}")
     tape = _words(root) + _words(seal)
-    receipt = prove_zkr(load_own_program(name), ids[name], leaves, tape,
-                        claim=segment_receipt.claim, device=device, **kw)
-    if not np.array_equal(receipt_claim_digest(receipt),
-                          segment_receipt.claim.digest()):
-        raise VerificationError("lift output claim digest mismatch")
-    return receipt
+    with telemetry.boundary("lift", po2=po2, program=name):
+        receipt = prove_zkr(load_own_program(name), ids[name], leaves, tape,
+                            claim=segment_receipt.claim, device=device, **kw)
+        if not np.array_equal(receipt_claim_digest(receipt),
+                              segment_receipt.claim.digest()):
+            raise VerificationError("lift output claim digest mismatch")
+        return receipt
 
 
 def join(left: SuccinctReceipt, right: SuccinctReceipt, device="cuda",

@@ -257,6 +257,7 @@ DELIBERATE = {
     "hash/suite.py": {"HashSuite.new_rng", "HashSuite.hash_pair",
                       "HashSuite.hash_elem_slice"},
     "parallel/scheduler.py": {"Task.affinity", "TaskDone.host"},
+    "perf.py": {"ENABLED", "summary", "toplevel_seconds"},
     "prove/merkle.py": {"MerkleTreeProver.prove"},
     "prove/soundness.py": {"ETA", "conjectured_strict"},
 }
