@@ -147,6 +147,13 @@ non-zero:
                main in dev mode, each asserting what its JAX counterpart
                asserts
 
+Phase 3 also runs the plan interpreter (csrc/eval_plan.cu), the
+constraint eval of one domain chunk, against its plain twin
+(ir_range._run_chunk) on a chunk of T = 2^16 rows of the rv32im, recursion
+and keccak plans (random taps and globals, the edge words among them),
+with every register row compared; its bound is the stream's
+register-file bytes (ir_range.stream_row_bytes) x T over 3.35 TB/s.
+Phase 6 counts its launches: one a chunk, 64 for the po2 20 prove.
 Phase 3 also holds the kernels at the recursion prove's shapes (12, 23
 and 128 columns at 2^18 rows, the check group, trees of 2^20 leaves, its
 FRI rounds) and at the keccak prove's (1096 columns at 2^17 rows and at
@@ -362,6 +369,74 @@ def phase_kernels(dev, kntt, kp2, ntt_mod):
     return rec
 
 
+def phase_eval_plan(dev):
+    """The plan interpreter against ir_range._run_chunk on one chunk of
+    T = 2^16 rows of each circuit's plan; returns a record per circuit."""
+    from risc0_tpu_torch.circuit import ir_range
+    from risc0_tpu_torch.circuit.keccak.circuit import load_circuit as kc
+    from risc0_tpu_torch.circuit.recursion.circuit import \
+        load_prover_circuit
+    from risc0_tpu_torch.circuit.rv32im.circuit import load_circuit as rv
+    from risc0_tpu_torch.hal.cuda import eval_plan as keval
+
+    T = 1 << 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    edge = torch.tensor([0, 1, P - 1], dtype=torch.int32, device=dev)
+    recs = []
+    for name, load in (("rv32im", rv), ("recursion", load_prover_circuit),
+                       ("keccak", kc)):
+        plan = ir_range._range_plan(load())
+        dplan = ir_range._DevicePlan(plan, dev)
+        nc, nt, ng = (len(plan.const_vals), len(plan.tap_specs),
+                      len(plan.global_specs))
+        fp = torch.zeros((plan.fp_rows, T), dtype=torch.int32, device=dev)
+        fp[:nc] = torch.from_numpy(plan.const_vals.view(np.int32)).to(
+            dev)[:, None]
+        fp[nc:nc + nt] = _words(gen, (nt, T), dev)
+        fp[nc:nc + nt, :3] = edge
+        glob = _words(gen, (ng, 1), dev)
+        glob[:3] = edge[:min(3, ng), None]
+        fp[nc + nt:nc + nt + ng] = glob
+        ext = torch.zeros((plan.ext_rows, T, 4), dtype=torch.int32,
+                          device=dev)
+        ext[:len(plan.econst_vals)] = torch.from_numpy(
+            plan.econst_vals.view(np.int32)).to(dev)[:, None, :]
+        pm = _words(gen, (max(dplan.ops_head[2], 3), 4), dev)
+        pm[:3] = edge[:, None]
+        pf, pe = fp.clone(), ext.clone()
+
+        def kernel():
+            keval.eval_plan(dplan.ops, dplan.ops_head, fp, ext, pm)
+
+        kernel()  # warm-up
+        ms, _ = _sync_ms(kernel, TIMED_REPS)
+        plain_ms, _ = _sync_ms(lambda: ir_range._run_chunk(dplan, pf, pe,
+                                                           pm, T))
+        equal = torch.equal(fp, pf) and torch.equal(ext, pe)
+        read, written = ir_range.stream_row_bytes(
+            ir_range.encode_plan(plan))
+        bound_ms = (read + written) * T / HBM_BYTES_S * 1e3
+        shape_s = (f"{name} chunk (fp {plan.fp_rows}, ext {plan.ext_rows}, "
+                   f"T 2^16)")
+        print(f"kernel eval_plan {shape_s}: equal={equal} "
+              f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+              f"bound_ms={bound_ms:.5f} (bytes: {read} read + {written} "
+              f"written a row) share={bound_ms / ms:.1%}", flush=True)
+        if not equal:
+            raise AssertionError(f"eval_plan differs from _run_chunk on "
+                                 f"the {name} plan")
+        recs.append({"name": "eval_plan", "route": "cuda",
+                     "source": "risc0_tpu_torch/csrc/eval_plan.cu",
+                     "replaces": None, "max_abs_err": 0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "library_ms": None,
+                     "shape": shape_s})
+        del fp, ext, pf, pe, dplan
+        torch.cuda.empty_cache()
+    return recs
+
+
 def phase_check(dev):
     """The fib seal on the card equals the JAX package's seal."""
     from risc0_tpu_torch.circuit import fib
@@ -451,11 +526,13 @@ def phase_witgen(dev, seg):
 
 def phase_prove(dev, seg, counters):
     from risc0_tpu_torch import loop_guest, perf
-    from risc0_tpu_torch.circuit.rv32im.prove import prove_segment
+    from risc0_tpu_torch.circuit.rv32im.prove import (EVAL_CHUNK,
+                                                      prove_segment)
     from risc0_tpu_torch.circuit.rv32im.verify import verify_rv32im_seal
+    from risc0_tpu_torch.hal.cuda import eval_plan as keval
     from risc0_tpu_torch.verify.verifier import VerificationError
 
-    for fn in counters:
+    for fn in counters + [keval.eval_plan]:
         fn.launches = 0
     perf.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -465,6 +542,7 @@ def phase_prove(dev, seg, counters):
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
+    eval_launches = keval.eval_plan.launches
     peak = torch.cuda.max_memory_allocated()
     stages = perf.report()
 
@@ -498,6 +576,13 @@ def phase_prove(dev, seg, counters):
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: {missing}")
+    chunks = (4 << seg.po2) // EVAL_CHUNK
+    print(f"prove: eval_plan launches {eval_launches} (one a chunk of "
+          f"{EVAL_CHUNK} domain rows: {chunks})", flush=True)
+    if eval_launches != chunks:
+        raise AssertionError(f"eval_plan launched {eval_launches} times, "
+                             f"not once a chunk ({chunks})")
+    launches["eval_plan"] = eval_launches
 
     perf.reset()
     exec_s, seal2 = _wall_s(lambda: prove_segment(
@@ -1725,6 +1810,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     rec = phase_kernels(dev, kntt, kp2, ntt_mod)
+    eval_recs = phase_eval_plan(dev)
     done(3)
     phase_check(dev)
 
@@ -1783,6 +1869,7 @@ def main() -> int:
         "library_ms": None,  # no PyTorch call computes these functions
         "shape": rec[name]["shape"],
     } for name, (src, replaces) in meta.items()]
+    kernels += [dict(r, launches=launches["eval_plan"]) for r in eval_recs]
     print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(card, flush=True)

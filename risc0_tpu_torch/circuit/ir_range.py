@@ -9,9 +9,11 @@ into signed sums (field addition is associative, so both are exact).
 
 ``make_eval_check`` runs that plan over the 4x domain in chunks of T rows
 on the device of the evaluated groups: an (fp_rows, T) int32 register file
-and an (ext_rows, T, 4) one, one torch op group after another.  Sums take
-int64 and reduce once (the reference's 16-bit halves exist only because
-the TPU has no u64).
+and an (ext_rows, T, 4) one.  On the card one launch of the plan
+interpreter (``hal/cuda/eval_plan.py``) evaluates a chunk from the plan's
+op stream (``encode_plan``); on the CPU ``_run_chunk``, its plain twin, runs
+one torch op group after another.  Sums take int64 and reduce once (the
+reference's 16-bit halves exist only because the TPU has no u64).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from .. import field as F
 from ..convert import to_torch
 from ..hal import torch_hal
+from ..hal.cuda import eval_plan as keval
 from . import ir_exec
 from .ir_exec import (EADD, EADDF, ECONST, EMADD, EMUL, ESCALE, ESUB, ESUBF,
                       FADD, FCONST, FGLOBAL, FMUL, FSUB, FSUBE, FTAP,
@@ -383,6 +386,128 @@ def plan_buf_ids(plan) -> list:
     return sorted({int(s[0]) for s in plan.tap_specs})
 
 
+# ---- the op stream (read by csrc/eval_plan.cu) ------------------------------
+#
+# One flat int32 array: a header of STREAM_HEAD words (fp_rows, ext_rows,
+# mix powers read, groups), then the plan's groups in execution order:
+#   binary kind  op, n, dst0, (a_i, b_i) * n        dst0 + i = a_i op b_i
+#   chain        op, dst, acc, n1, n2, n3, (k, f) * n1, (k, e) * n2,
+#                (k, f, e) * n3
+#   fsum         op, n, dst0, then per sum: len, leaf * len, where a leaf
+#                is row << 1 | (sign < 0); dst0 + i = sum of its leaves
+# Operands are rows of the file of their kind (the group kinds below);
+# k indexes the mix powers.
+BINARY_KINDS = ("fadd", "fsub", "fmul", "eadd", "esub", "emul", "escale",
+                "eaddf", "esubf", "fsube")
+OPCODES = {kind: i for i, kind in
+           enumerate(BINARY_KINDS + ("chain", "fsum"))}
+STREAM_HEAD = 4
+
+
+def encode_plan(plan: RangePlan) -> np.ndarray:
+    """The plan's groups as the op stream (int32)."""
+    parts, n_mix = [], 0
+    for g in plan.groups:
+        kind = g[0]
+        if kind == "chain":
+            ch = g[1]
+            terms = [ch["t1f"], ch["te"], ch["tfe"]]
+            parts.append([OPCODES[kind], ch["dst"], ch["acc"],
+                          *(len(t) for t in terms)])
+            parts += [t.ravel() for t in terms]
+            n_mix = max([n_mix] + [int(t[:, 0].max()) + 1
+                                   for t in terms if len(t)])
+        elif kind == "fsum":
+            _k, dst0, rows, signs = g
+            parts.append([OPCODES[kind], len(rows), dst0])
+            for r, s in zip(rows, signs):
+                n = int(np.count_nonzero(s))
+                assert np.all(s[:n] != 0), "fsum padding must trail"
+                parts.append([n])
+                parts.append(r[:n].astype(np.int64) * 2 + (s[:n] < 0))
+        else:
+            _k, dst0, a, b = g
+            parts.append([OPCODES[kind], len(a), dst0])
+            parts.append(np.stack([a, b], 1).ravel())
+    head = [plan.fp_rows, plan.ext_rows, n_mix, len(plan.groups)]
+    words = np.concatenate([np.asarray(p, np.int64).ravel()
+                            for p in [head] + parts])
+    assert words.min() >= 0 and words.max() < (1 << 31)
+    return words.astype(np.int32)
+
+
+def decode_plan(words) -> tuple:
+    """(header, groups): the inverse of ``encode_plan``; the groups as
+    ``RangePlan.groups`` holds them (fsum sums padded to the longest)."""
+    w = np.asarray(words, np.int64)
+    head = tuple(int(x) for x in w[:STREAM_HEAD])
+    kinds = {v: k for k, v in OPCODES.items()}
+    groups, pc = [], STREAM_HEAD
+    while pc < len(w):
+        kind = kinds[int(w[pc])]
+        if kind == "chain":
+            dst, acc, n1, n2, n3 = (int(x) for x in w[pc + 1:pc + 6])
+            pc += 6
+            parts = {}
+            for key, n, width in (("t1f", n1, 2), ("te", n2, 2),
+                                  ("tfe", n3, 3)):
+                parts[key] = w[pc:pc + n * width].reshape(n, width).astype(
+                    np.int32)
+                pc += n * width
+            groups.append(("chain", {"dst": dst, "acc": acc, **parts}))
+        elif kind == "fsum":
+            n, dst0 = int(w[pc + 1]), int(w[pc + 2])
+            pc += 3
+            sums = []
+            for _ in range(n):
+                length = int(w[pc])
+                sums.append(w[pc + 1:pc + 1 + length])
+                pc += 1 + length
+            width = max(len(s) for s in sums)
+            rows = np.zeros((n, width), np.int32)
+            signs = np.zeros((n, width), np.int8)
+            for i, s in enumerate(sums):
+                rows[i, :len(s)] = s >> 1
+                signs[i, :len(s)] = 1 - 2 * (s & 1)
+            groups.append(("fsum", dst0, rows, signs))
+        else:
+            n, dst0 = int(w[pc + 1]), int(w[pc + 2])
+            ab = w[pc + 3:pc + 3 + 2 * n].reshape(n, 2).astype(np.int32)
+            pc += 3 + 2 * n
+            groups.append((kind, dst0, ab[:, 0].copy(), ab[:, 1].copy()))
+    return head, groups
+
+
+# bytes a domain row reads and writes for each operand of a binary kind:
+# fp words 4 B, ext elements 16 B
+_BINARY_BYTES = {"fadd": (8, 4), "fsub": (8, 4), "fmul": (8, 4),
+                 "eadd": (32, 16), "esub": (32, 16), "emul": (32, 16),
+                 "escale": (20, 16), "eaddf": (20, 16), "esubf": (20, 16),
+                 "fsube": (20, 16)}
+
+
+def stream_row_bytes(words) -> tuple[int, int]:
+    """(read, written) register-file bytes of one domain row of the op
+    stream, each operand counted once per use (the kernel's traffic if
+    nothing stayed in cache); the mix powers, the same for every row, are
+    not counted."""
+    read = written = 0
+    for g in decode_plan(words)[1]:
+        if g[0] == "chain":
+            ch = g[1]
+            read += 16 + 4 * len(ch["t1f"]) + 16 * len(ch["te"]) \
+                + 20 * len(ch["tfe"])
+            written += 16
+        elif g[0] == "fsum":
+            read += 4 * int(np.count_nonzero(g[3]))
+            written += 4 * len(g[2])
+        else:
+            r, wr = _BINARY_BYTES[g[0]]
+            read += r * len(g[2])
+            written += wr * len(g[2])
+    return read, written
+
+
 def inv_zeros_pattern(po2: int) -> np.ndarray:
     """1 / ((3x)^cycles - 1) over the shifted 4x domain, which repeats with
     period 4 (reference hal/cpu.rs:192-197)."""
@@ -407,9 +532,13 @@ def _idx(a, device):
 
 
 class _DevicePlan:
-    """A RangePlan's operand index arrays, uploaded once per device."""
+    """A RangePlan's op stream and operand index arrays, uploaded once per
+    device."""
 
     def __init__(self, plan: RangePlan, device):
+        words = encode_plan(plan)
+        self.ops = torch.from_numpy(words).to(device)
+        self.ops_head = tuple(int(x) for x in words[:STREAM_HEAD])
         self.groups = []
         for g in plan.groups:
             if g[0] == "chain":
@@ -430,13 +559,14 @@ class _DevicePlan:
                                     _idx(b, device)))
         self.const_vals = to_torch(plan.const_vals, device)
         self.econst_vals = to_torch(plan.econst_vals, device)
-        # tap rows per (buffer, back): positions in the tap block + columns
+        # tap rows per (buffer, back): their fp rows + columns
         specs = np.array(plan.tap_specs, np.int64).reshape(-1, 3)
+        nc = len(plan.const_vals)
         self.taps = []
         for pos_b, buf in enumerate(plan_buf_ids(plan)):
             for back in sorted({int(b) for b in specs[specs[:, 0] == buf, 2]}):
                 sel = np.nonzero((specs[:, 0] == buf) & (specs[:, 2] == back))[0]
-                self.taps.append((pos_b, back, _idx(sel, device),
+                self.taps.append((pos_b, back, _idx(nc + sel, device),
                                   _idx(specs[sel, 1], device)))
 
 
@@ -467,7 +597,9 @@ def _chain_sum(pm, fp, ext, parts, T):
 
 def _run_chunk(dplan, fp, ext, pm, T):
     """Execute every op group for one chunk whose inputs are staged in the
-    register files; returns nothing (results land in fp / ext)."""
+    register files; returns nothing (results land in fp / ext).  The plain
+    twin of the plan interpreter (``hal/cuda/eval_plan.py``): the same
+    words in every row."""
     for g in dplan.groups:
         kind = g[0]
         if kind == "chain":
@@ -521,7 +653,8 @@ def make_eval_check(plan: RangePlan, po2: int, chunk: int = 1 << 16):
     (zeros-poly division included) on the device of `evs`, a tuple of
     evaluated (cols, domain) group tensors in ``plan_buf_ids(plan)`` order;
     gvals (n_globals,) and pm_pows (n, 4) are host u32 arrays.  The domain
-    runs in chunks of T = min(chunk, domain) rows.  Under
+    runs in chunks of T = min(chunk, domain) rows: on the card one launch
+    of the plan interpreter a chunk, on the CPU ``_run_chunk``.  Under
     ``parallel.sharded.mesh_context`` the chunks split evenly over the
     mesh's devices, each holding every group, and the result lies on the
     first device, which must be that of `evs`.
@@ -550,10 +683,13 @@ def make_eval_check(plan: RangePlan, po2: int, chunk: int = 1 << 16):
         ar = torch.arange(T, device=dev)
         tot = torch.empty((hi - lo, 4), dtype=torch.int32, device=dev)
         for start in range(lo, hi, T):
-            for pos_b, back, sel, cols in dplan.taps:
+            for pos_b, back, tap_rows, cols in dplan.taps:
                 idx = (start - 4 * back + ar) % domain
-                fp[nc + sel] = evs[pos_b][cols[:, None], idx[None, :]]
-            _run_chunk(dplan, fp, ext, pm, T)
+                fp[tap_rows] = evs[pos_b][cols[:, None], idx[None, :]]
+            if fp.is_cuda:
+                keval.eval_plan(dplan.ops, dplan.ops_head, fp, ext, pm)
+            else:
+                _run_chunk(dplan, fp, ext, pm, T)
             tot[start - lo : start - lo + T] = ext[plan.ret_row]
         return tot
 

@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("babybear.cuh", "poseidon2.cu", "ntt.cu")
+SOURCES = ("babybear.cuh", "poseidon2.cu", "ntt.cu", "eval_plan.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _V, _U32, _U64 = C.c_void_p, C.c_uint32, C.c_uint64
@@ -32,6 +32,7 @@ _SIGNATURES = {
     "p2_merkle_fold": (_V, _V, _V, _U64, _U64, _U64, C.c_int, _V),
     "ntt_evaluate": (_V, _V, _V, _V, _V, *[_U32] * 6, _V),
     "ntt_interpolate": (_V, _V, _V, _V, _V, *[_U32] * 6, _V),
+    "eval_plan": (_V, _U32, _V, _V, _V, _U32, _V),
 }
 
 _lib = None

@@ -375,3 +375,55 @@ def test_segment_proves_and_verifies_under_each_suite(dev, loop_segment,
     for s, st in ((bad, suite), (seal, None)):
         with pytest.raises(VerificationError):
             verify_rv32im_seal(s, st)
+
+
+# the plan interpreter (csrc/eval_plan.cu) against its plain twin on one
+# chunk of each circuit's plan, every fp and ext row of the file compared;
+# random taps, globals and mix powers with 0, 1 and P - 1 among them.  T is
+# no multiple of the kernel's block in the synthetic case.
+@pytest.mark.parametrize("name,T", [("rv32im", 1 << 12),
+                                    ("recursion", 1 << 11),
+                                    ("keccak", 1 << 10), ("synthetic", 1000)])
+def test_eval_plan_kernel_equals_run_chunk(dev, name, T):
+    from test_torch_eval_stream import _plan, staged_file
+
+    from risc0_tpu_torch.circuit import ir_range
+    from risc0_tpu_torch.hal.cuda import eval_plan as keval
+
+    plan = _plan(name)
+    fp, ext, pm = (torch.from_numpy(a.view(np.int32)).to(dev)
+                   for a in staged_file(plan, T, seed=T))
+    dplan = ir_range._DevicePlan(plan, dev)
+    want_fp, want_ext = fp.clone(), ext.clone()
+    before = keval.eval_plan.launches
+    keval.eval_plan(dplan.ops, dplan.ops_head, fp, ext, pm)
+    assert keval.eval_plan.launches == before + 1
+    ir_range._run_chunk(dplan, want_fp, want_ext, pm, T)
+    assert torch.equal(fp, want_fp)
+    assert torch.equal(ext, want_ext)
+
+
+def test_eval_check_on_the_card_equals_its_cpu_run(dev):
+    """make_eval_check of the rv32im plan at po2 10 in chunks of 2^10:
+    the card runs the kernel once a chunk, the CPU the plain twin."""
+    from risc0_tpu_torch.circuit import ir_range
+    from risc0_tpu_torch.circuit.rv32im.circuit import load_circuit
+    from risc0_tpu_torch.hal.cuda import eval_plan as keval
+
+    circuit = load_circuit()
+    plan = ir_range._range_plan(circuit)
+    po2, chunk = 10, 1 << 10
+    rng = np.random.default_rng(10)
+    evs = [rng.integers(0, F.P, (cols, 4 << po2), dtype=np.uint32)
+           for cols in (103, 211)]
+    gvals = rng.integers(0, F.P, len(plan.global_specs), dtype=np.uint32)
+    pm = circuit.mix_pows(rng.integers(0, F.P, 4, dtype=np.uint32))
+    fn = ir_range.make_eval_check(plan, po2, chunk=chunk)
+    want = fn(tuple(torch.from_numpy(e.view(np.int32)) for e in evs),
+              gvals, pm)
+    before = keval.eval_plan.launches
+    got = fn(tuple(torch.from_numpy(e.view(np.int32)).to(dev) for e in evs),
+             gvals, pm)
+    assert keval.eval_plan.launches == before + (4 << po2) // chunk
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
