@@ -149,35 +149,44 @@ def lift_keccak(keccak_seal, po2: int, device="cuda",
                                          verify_keccak_seal)
 
     device = card(device)
-    claim = keccak_digest_from_globals(verify_keccak_seal(keccak_seal),
-                                       montgomery=True)
-    # proved against the repository's allowed set (the keccak_lift IDs are
-    # members), so the receipt unions and resolves with rv32im receipts
-    # under one control root: the program echoes the tape's control root
-    # into its output, which union and resolve require to equal theirs
-    ids, leaves, root = _allowed()
-    tape = _words(root) + _words(keccak_seal)
-    for w in _words(claim):
-        tape += [w & 0xFFFF, w >> 16]
-    tape.append(1 << po2)
-    receipt = prove_zkr(load_keccak_lift(po2), ids[f"keccak_lift_{po2}"],
-                        leaves, tape, claim=MaybePruned.from_digest(claim),
-                        device=device, **kw)
-    if not np.array_equal(receipt_claim_digest(receipt), claim):
-        raise VerificationError("keccak lift claim digest mismatch")
-    return receipt
+    name = f"keccak_lift_{po2}"
+    with telemetry.boundary("lift_keccak", program=name):
+        with telemetry.boundary("verify_keccak"):
+            claim = keccak_digest_from_globals(
+                verify_keccak_seal(keccak_seal), montgomery=True)
+        # proved against the repository's allowed set (the keccak_lift IDs
+        # are members), so the receipt unions and resolves with rv32im
+        # receipts under one control root: the program echoes the tape's
+        # control root into its output, which union and resolve require to
+        # equal theirs
+        ids, leaves, root = _allowed()
+        tape = _words(root) + _words(keccak_seal)
+        for w in _words(claim):
+            tape += [w & 0xFFFF, w >> 16]
+        tape.append(1 << po2)
+        receipt = prove_zkr(load_keccak_lift(po2), ids[name], leaves, tape,
+                            claim=MaybePruned.from_digest(claim),
+                            device=device, **kw)
+        if not np.array_equal(receipt_claim_digest(receipt), claim):
+            raise VerificationError("keccak lift claim digest mismatch")
+        return receipt
 
 
 def prove_keccak_request(request: dict, device="cuda",
                          **kw) -> SuccinctReceipt:
     """A ProveKeccakRequest (api.proto:63-71; the Session.pending_keccaks
     entries: claim_digest, po2, control_root, input) -> SuccinctReceipt:
-    the keccak prove and its lift on `device`."""
+    the keccak prove and its lift on `device`.  Counts the batch and its
+    permutations in the telemetry metrics."""
     from ..circuit.keccak.prove import prove_keccak
 
     device = card(device)
     po2 = int(request["po2"])
-    seal = prove_keccak(request["input"], po2, device=device)
+    n = len(request["input"])
+    with telemetry.boundary("prove_keccak", po2=po2, permutations=n):
+        seal = prove_keccak(request["input"], po2, device=device)
+    telemetry.metrics().inc("risc0_keccak_batches")
+    telemetry.metrics().inc("risc0_keccak_permutations", n)
     receipt = lift_keccak(seal, po2, device, **kw)
     want = request["claim_digest"]
     want = (np.frombuffer(bytes(want), np.uint32)
@@ -246,14 +255,16 @@ def resolve(conditional: SuccinctReceipt, assumption: SuccinctReceipt,
     The conditional's claim must carry an unpruned Output whose head
     assumption is `assumption`'s claim."""
     device = card(device)
-    tape, resolved = _resolve_parts(conditional, conditional.claim,
-                                    assumption)
-    ids, leaves, _root = _allowed()
-    receipt = prove_zkr(load_own_program("resolve"), ids["resolve"], leaves,
-                        tape, claim=resolved, device=device, **kw)
-    if not np.array_equal(receipt_claim_digest(receipt), resolved.digest()):
-        raise VerificationError("resolve output claim digest mismatch")
-    return receipt
+    with telemetry.boundary("resolve"):
+        tape, resolved = _resolve_parts(conditional, conditional.claim,
+                                        assumption)
+        ids, leaves, _root = _allowed()
+        receipt = prove_zkr(load_own_program("resolve"), ids["resolve"],
+                            leaves, tape, claim=resolved, device=device, **kw)
+        if not np.array_equal(receipt_claim_digest(receipt),
+                              resolved.digest()):
+            raise VerificationError("resolve output claim digest mismatch")
+        return receipt
 
 
 def _assumption_digest(receipt: SuccinctReceipt) -> np.ndarray:
@@ -269,21 +280,22 @@ def union(a: SuccinctReceipt, b: SuccinctReceipt, device="cuda",
     host/recursion/prove/mod.rs:185-213), proved on `device`.  The operands
     go in the order of their assumption digests in receipt.union_claim."""
     device = card(device)
-    da = _assumption_digest(a)
-    claim = union_claim(da, _assumption_digest(b))
-    left, right = (a, b) if np.array_equal(claim.left, da) else (b, a)
+    with telemetry.boundary("union"):
+        da = _assumption_digest(a)
+        claim = union_claim(da, _assumption_digest(b))
+        left, right = (a, b) if np.array_equal(claim.left, da) else (b, a)
 
-    ids, leaves, root = _allowed()
-    group = MerkleGroup(leaves)
-    tape = _words(root)
-    for r in (left, right):
-        tape += _proof_words(group, r.control_id)
-        tape += _words(r.seal)
-    receipt = prove_zkr(load_own_program("union"), ids["union"], leaves,
-                        tape, claim=claim, device=device, **kw)
-    if not np.array_equal(receipt_claim_digest(receipt), claim.digest()):
-        raise VerificationError("union output claim digest mismatch")
-    return receipt
+        ids, leaves, root = _allowed()
+        group = MerkleGroup(leaves)
+        tape = _words(root)
+        for r in (left, right):
+            tape += _proof_words(group, r.control_id)
+            tape += _words(r.seal)
+        receipt = prove_zkr(load_own_program("union"), ids["union"], leaves,
+                            tape, claim=claim, device=device, **kw)
+        if not np.array_equal(receipt_claim_digest(receipt), claim.digest()):
+            raise VerificationError("union output claim digest mismatch")
+        return receipt
 
 
 class MerkleMountainAccumulator:
