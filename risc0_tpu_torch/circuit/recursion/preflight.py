@@ -9,18 +9,24 @@ bytes.  The preflight interprets the program to collect the WOM contents,
 IOP read values, and per-cycle parallel-safety used by witness generation.
 
 All field values are STANDARD form u32 (Fp) / 4-tuples (FpExt).
+
+`RecursionPreflight.run` interprets the rows in host C++ (`native.py`,
+`csrc/rec_preflight.cpp`), one call a program; the per-row methods below
+are its hand-written Python twin, which the tests hold it against.
 """
 
 from __future__ import annotations
 
 from collections import deque
+from functools import cached_property
 
 import numpy as np
 
 from ... import field as F
-from ... import perf
+from ... import perf, telemetry
 from ...hash import poseidon2 as p2
 from ..keccak.preflight import SHA_INIT, compute_sha_infos
+from . import native
 
 P = F.P
 R_MOD_P = F.R % F.P            # BABY_BEAR_TO_MONTGOMERY (0xFFFFFFE)
@@ -90,11 +96,28 @@ def _byteswap32(x):
 EZERO = (0, 0, 0, 0)
 
 
+def _tape(words):
+    """Input words as u32 (each taken mod 2^32, as the VM reads them)."""
+    arr = np.asarray(words)
+    if arr.dtype.kind not in "iu":
+        arr = np.array([int(x) & 0xFFFFFFFF for x in words], np.uint64)
+    return arr.astype(np.uint32).ravel()
+
+
+# what `run` leaves as arrays; the properties below read them as lists
+_RUN_RESULTS = ("wom", "iops", "cycles", "output", "eq_failures",
+                "byte_reads", "input")
+
+
 class RecursionPreflight:
     def __init__(self, input_words, eq_strict=True):
         self.eq_strict = eq_strict
+        self.tape = _tape(input_words)
+        self.input_used = 0
+        self.arrays = None       # the native run's results (`run`)
+        # the Python twin's state; after `run` the result lists are built
+        # from `arrays` on first access (the cached properties below)
         self.eq_failures = []
-        self.input = deque(int(x) & 0xFFFFFFFF for x in input_words)
         self.wom = []            # list of 4-tuples
         self.iops = []           # list of 4-tuples
         self.cycles = []         # (iop_idx, is_par_safe)
@@ -123,13 +146,52 @@ class RecursionPreflight:
             raise ValueError(f"WOM {addr} overwritten: {val} over {cur}")
         self.wom[addr] = tuple(val)
 
+    # -- results of a native run, as the Python twin keeps them --------------
+    @cached_property
+    def input(self):
+        return deque(self.tape[self.input_used:].tolist())
+
+    @cached_property
+    def wom(self):
+        return [tuple(r) for r in self.arrays["wom"].tolist()]
+
+    @cached_property
+    def iops(self):
+        return [tuple(r) for r in self.arrays["iops"].tolist()]
+
+    @cached_property
+    def cycles(self):
+        return list(zip(self.arrays["iop_idx"].tolist(),
+                        self.arrays["par_safe"].tolist()))
+
+    @cached_property
+    def output(self):
+        return self.arrays["output"].tolist()
+
+    @cached_property
+    def eq_failures(self):
+        return [(r[0], tuple(r[1:5]), tuple(r[5:9]))
+                for r in self.arrays["eq_failures"].tolist()]
+
+    @cached_property
+    def byte_reads(self):
+        return {r[0]: r[1:] for r in self.arrays["byte_reads"].tolist()}
+
     # -- program ------------------------------------------------------------
     def run(self, code_rows):
-        """Interpret every code row; a failing in-VM assertion raises.  A
-        Python loop over the rows on the host, timed as `rec_preflight`."""
+        """Interpret every code row in one native call, timed as
+        `rec_preflight`; a failing in-VM assertion raises the exception
+        class the Python twin raises.  Leaves the results in `arrays`."""
+        if self.arrays is not None or self.cycles:
+            raise ValueError("a preflight runs its program once")
         with perf.scope("rec_preflight"):
-            for cycle, row in enumerate(np.asarray(code_rows).tolist()):
-                self.step(cycle, row)
+            self.arrays = native.run(code_rows, self.tape, self.eq_strict)
+            rows = len(self.arrays["iop_idx"])
+            telemetry.tracer().annotate(rows=rows)
+        telemetry.metrics().inc("risc0_rec_preflight_rows", rows)
+        self.input_used = self.arrays["input_used"]
+        for name in _RUN_RESULTS:
+            self.__dict__.pop(name, None)
 
     def step(self, cycle, code):
         if code[SEL_MACRO] == 1:

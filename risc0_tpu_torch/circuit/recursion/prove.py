@@ -143,29 +143,28 @@ def _u32p(a):
     return a.ctypes.data_as(C.POINTER(C.c_uint32))
 
 
-def _rows4(items):
-    return np.array([list(w) for w in items], np.uint32).reshape(-1, 4) \
-        if items else np.zeros((1, 4), np.uint32)
+def _rows4(rows):
+    return rows if len(rows) else np.zeros((1, 4), np.uint32)
 
 
 def witgen_recursion(program: Program, pf: RecursionPreflight, rng=None):
     """Generate the ctrl/data/global witness buffers (standard form) on
-    the host; draws the data group's (128, 1024) zk noise from `rng`."""
+    the host from the preflight's arrays (`RecursionPreflight.run`); draws
+    the data group's (128, 1024) zk noise from `rng`."""
     progs = _progs()
     lib = progs["lib"]
     rng = rng or np.random.default_rng()
     steps = 1 << program.po2
     work = program.code_rows
-    if len(pf.cycles) != work:
+    if pf.arrays is None or len(pf.arrays["iop_idx"]) != work:
         raise ValueError("preflight did not run this program")
 
     with perf.scope("rec_witgen"):
         ctrl = np.ascontiguousarray(program.ctrl_buffer())
         data = np.full((REGCOUNT_DATA, steps), INVALID, np.uint32)
         glob = np.full(32, INVALID, np.uint32)
-        wom, iops = _rows4(pf.wom), _rows4(pf.iops)
-        iop_idx = np.array([c[0] for c in pf.cycles], np.uint32)
-        par_safe = np.array([c[1] for c in pf.cycles], np.uint32)
+        wom, iops = _rows4(pf.arrays["wom"]), _rows4(pf.arrays["iops"])
+        iop_idx, par_safe = pf.arrays["iop_idx"], pf.arrays["par_safe"]
 
         ex_ops, ex_slots = progs["exec"]
         vm_ops, vm_slots = progs["vmem"]

@@ -189,6 +189,12 @@ class Tracer:
         st.append(s)
         return s
 
+    def annotate(self, **attrs):
+        """Set attributes on this thread's innermost open span, if any."""
+        st = self._stack()
+        if st:
+            st[-1].attributes.update(attrs)
+
     def is_open(self, name: str) -> bool:
         """Whether a span of that name is open on this thread."""
         return any(s.name == name for s in self._stack())
